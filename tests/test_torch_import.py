@@ -1,0 +1,41 @@
+"""The PyTorch port imports neither JAX nor the JAX package."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import lpi_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(lpi_tpu_torch.__path__, "lpi_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+runpy_ns = {"__name__": "chip_smoke_probe"}
+exec(compile(open("chip_smoke.py").read(), "chip_smoke.py", "exec"), runpy_ns)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "lpi_tpu"))
+print(len(names), bad)
+"""
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, check=True,
+                         capture_output=True, text=True, timeout=300).stdout.split()
+    n_modules, bad = int(out[0]), " ".join(out[1:])
+    assert n_modules >= 17
+    assert bad == "[]", bad
+
+
+def test_chip_smoke_refuses_without_card():
+    """Without a card the script exits non-zero and prints no result."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run for real")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
