@@ -1,0 +1,249 @@
+"""Continual grounding learner, the 12-task GLIP loop (counterpart of
+`lpi_tpu/continual/grounding_learner.py`).
+
+Per task a fresh AdamW with full-update clipping and a per-epoch cosine
+learning rate trains ONLY that task's rows of the prompt and interaction
+pools: ATSS grounding losses x0.8 + alignment x0.1 + inter-task x0.1, each
+non-finite loss zeroed; then k-means task keys over the frozen P7 features.
+
+The optimizer is written out to match optax's `clip_by_global_norm`
+followed by `adamw` (b1 0.9, b2 0.999, eps 1e-8, bias correction, decay
+added to the Adam direction), with a one-hot over the leading task axis on
+the gradients and on the updates: `torch.optim.AdamW` would decay the frozen
+tasks' rows, and `clip_grad_norm_` adds 1e-6 to the norm. The frozen
+parameters have requires_grad=False, so autograd computes gradients for the
+pools alone, as JAX differentiates with respect to them alone.
+
+`evaluate` (RefExp P@k over the seen tasks) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Mapping, Optional
+
+import numpy as np
+import torch
+
+from lpi_tpu_torch.config import GroundingConfig
+from lpi_tpu_torch.continual.common import freeze
+from lpi_tpu_torch.continual.keys import TaskKeys, exact_fp32
+from lpi_tpu_torch.data.grounding import GroundingTaskSet
+from lpi_tpu_torch.models.glip.atss import atss_losses
+from lpi_tpu_torch.models.glip.grounding import (GroundedVLModel, grounding_aux_losses,
+                                                 init_parameters)
+from lpi_tpu_torch.ops.kmeans import kmeans
+
+POOL_KEYS = ("prompts", "interact")
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+_BATCH_DTYPES = {"images": torch.float32, "input_ids": torch.long,
+                 "attention_mask": torch.float32, "gt_boxes": torch.float32,
+                 "gt_valid": torch.bool, "positive_map": torch.float32}
+
+
+@dataclass
+class AdamState:
+    """optax `scale_by_adam` state: first and second moments, step count."""
+    mu: List[torch.Tensor]
+    nu: List[torch.Tensor]
+    count: int = 0
+
+    @staticmethod
+    def zeros(params: List[torch.Tensor]) -> "AdamState":
+        return AdamState([torch.zeros_like(p) for p in params],
+                         [torch.zeros_like(p) for p in params])
+
+
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+    """optax's rule: g if ||g|| < max_norm, else g / ||g|| * max_norm (no
+    epsilon), decided on the device."""
+    norm = torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
+    return [torch.where(norm < max_norm, g, (g / norm.to(g.dtype)) * max_norm)
+            for g in grads]
+
+
+@torch.no_grad()
+def adamw_update(params: List[torch.Tensor], grads: List[torch.Tensor], state: AdamState,
+                 lr: float, weight_decay: float,
+                 masks: Optional[List[torch.Tensor]] = None) -> None:
+    """One optax `adamw` step applied in place: u = -lr (m_hat / (sqrt(v_hat)
+    + eps) + wd p), times `masks` where given."""
+    state.count += 1
+    bc1 = float(np.float32(1) - np.float32(ADAM_B1) ** np.float32(state.count))
+    bc2 = float(np.float32(1) - np.float32(ADAM_B2) ** np.float32(state.count))
+    for i, (p, g) in enumerate(zip(params, grads)):
+        mu = (1 - ADAM_B1) * g + ADAM_B1 * state.mu[i]
+        nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * state.nu[i]
+        state.mu[i], state.nu[i] = mu, nu
+        u = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
+        u = -lr * (u + weight_decay * p)
+        if masks is not None:
+            u = u * masks[i]
+        p.add_(u)
+
+
+def epoch_lrs(base_lr: float, epochs: int) -> List[float]:
+    """Cosine annealing stepped once per epoch: lr 0.5 (1 + cos(pi e / E))
+    for e = 0..E."""
+    return [float(np.float32(base_lr * 0.5 * (1.0 + math.cos(math.pi * e / epochs))))
+            for e in range(epochs + 1)]
+
+
+class GroundingLearner:
+    """`init_params` is a state_dict (as `bridge.params_from_jax` returns)
+    whose entries replace the seeded initial parameters; `generator` seeds
+    those (default: `cfg.seed`). Runs on `device`, the card unless asked
+    otherwise."""
+
+    def __init__(self, cfg: GroundingConfig, task_sim_matrix: Optional[np.ndarray] = None,
+                 init_params: Optional[Mapping[str, torch.Tensor]] = None,
+                 generator: Optional[torch.Generator] = None, device="cuda"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        model = GroundedVLModel(cfg)
+        init_parameters(model, generator if generator is not None
+                        else torch.Generator().manual_seed(cfg.seed))
+        if init_params is not None:
+            unexpected = model.load_state_dict(dict(init_params), strict=False).unexpected_keys
+            if unexpected:
+                raise KeyError(f"init_params has entries the model lacks: {unexpected[:5]}")
+        self.model = model.to(self.device)
+        self.pools, self.frozen = freeze(self.model, POOL_KEYS)
+        T = cfg.total_tasks
+        sim = np.eye(T, dtype=np.float32) if task_sim_matrix is None else np.asarray(
+            task_sim_matrix)
+        self.task_relation = torch.tensor((sim > cfg.lpi.task_sim_threshold).astype(np.float32),
+                                          device=self.device)
+        self.keys: Optional[TaskKeys] = None  # created at the first cluster_task
+
+    def to_device(self, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(np.asarray(v)).to(self.device, _BATCH_DTYPES[k])
+                for k, v in batch.items() if k in _BATCH_DTYPES}
+
+    # ------------------------------------------------------------------
+    def _losses(self, batch: Mapping[str, torch.Tensor], task_id: int):
+        """-> (total loss, metrics): the three ATSS terms x
+        `proposal_loss_weight`, the auxiliary losses, each zeroed where not
+        finite, and `num_pos`."""
+        cfg = self.cfg
+        flat, _, vis_p, txt_p = self.model(batch["images"], batch["input_ids"],
+                                           batch["attention_mask"], task_id)
+        det = atss_losses(flat["anchors"], tuple(flat["level_counts"]), flat["bbox_pred"],
+                          flat["centerness"], flat["dot_logits"], batch["gt_boxes"],
+                          batch["gt_valid"], batch["positive_map"], batch["attention_mask"],
+                          topk=cfg.atss.topk, reg_loss_weight=cfg.atss.reg_loss_weight)
+        w = cfg.proposal_loss_weight
+        losses = {"loss_reg": w * det["loss_reg"],
+                  "loss_centerness": w * det["loss_centerness"],
+                  "loss_dot_product_token": w * det["loss_dot_product_token"]}
+        vis_all, txt_all = self.model.prompts.all_prompts()
+        losses.update(grounding_aux_losses(vis_p, txt_p, vis_all, txt_all, task_id,
+                                           self.task_relation, cfg))
+        losses = {k: torch.where(torch.isfinite(v), v, torch.zeros_like(v))
+                  for k, v in losses.items()}
+        total = sum(losses.values())
+        return total, {**losses, "num_pos": det["num_pos"]}
+
+    def _step(self, batch, task_id: int, lr: float, state: AdamState,
+              params: Optional[Dict[str, torch.nn.Parameter]] = None,
+              masked: bool = True) -> Dict[str, torch.Tensor]:
+        """One train step on `params` (default: the pools): gradients, the
+        one-hot over the leading task axis (when `masked`), the global-norm
+        clip, AdamW, the one-hot again on the updates."""
+        cfg = self.cfg
+        params = list((self.pools if params is None else params).values())
+        batch = self.to_device(batch)
+        total, metrics = self._losses(batch, task_id)
+        grads = torch.autograd.grad(total, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        masks = None
+        if masked:
+            masks = []
+            for p in params:
+                oh = torch.zeros(p.shape[0], dtype=p.dtype, device=p.device)
+                oh[task_id] = 1.0
+                masks.append(oh.reshape((-1,) + (1,) * (p.dim() - 1)))
+            grads = [g * mk for g, mk in zip(grads, masks)]
+        grads = clip_by_global_norm(grads, cfg.grad_clip)
+        adamw_update(params, grads, state, lr, cfg.weight_decay, masks)
+        return {"total": total.detach(), **{k: v.detach() for k, v in metrics.items()}}
+
+    def make_step(self, task_id: int, steps_per_epoch: int,
+                  epochs: int) -> Callable[[Mapping], Dict[str, torch.Tensor]]:
+        """A session's masked step with a fresh optimizer state and the
+        per-epoch cosine learning rate: `step(batch)` -> metrics (device
+        tensors)."""
+        state = AdamState.zeros(list(self.pools.values()))
+        lrs = epoch_lrs(self.cfg.lr, epochs)
+        count = itertools.count()
+
+        def step(batch):
+            epoch = next(count) // max(steps_per_epoch, 1)
+            return self._step(batch, task_id, lrs[min(epoch, epochs)], state)
+
+        return step
+
+    def pretrain(self, dataset: GroundingTaskSet, steps: int,
+                 lr: Optional[float] = None) -> Dict[str, float]:
+        """Full-parameter training with no task masks at task 0 (the
+        reference's FULL tuning preset), then the frozen split again."""
+        cfg = self.cfg
+        lr = cfg.lr if lr is None else lr
+        params = dict(self.model.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        state = AdamState.zeros(list(params.values()))
+        metrics = {}
+        it = iter([])
+        try:
+            for n in range(steps):
+                batch = next(it, None)
+                if batch is None:
+                    it = dataset.batches(cfg.batch_size, seed=cfg.seed + n)
+                    batch = next(it)
+                metrics = self._step(batch, 0, lr, state, params=params, masked=False)
+        finally:
+            self.pools, self.frozen = freeze(self.model, POOL_KEYS)
+        return {k: float(v) for k, v in metrics.items()}
+
+    def train_task(self, dataset: GroundingTaskSet,
+                   epochs: Optional[int] = None) -> Dict[str, float]:
+        """Train the session of `dataset.task_index`, then set its task keys."""
+        cfg = self.cfg
+        epochs = epochs or cfg.epochs_per_task
+        step = self.make_step(dataset.task_index, max(len(dataset) // cfg.batch_size, 1),
+                              epochs)
+        metrics = {}
+        t0 = time.perf_counter()
+        steps = 0
+        for epoch in range(epochs):
+            for batch in dataset.batches(cfg.batch_size, seed=cfg.seed + epoch):
+                metrics = step(batch)
+                steps += 1
+        out = {k: float(v) for k, v in metrics.items()}
+        out["samples_per_sec"] = steps * cfg.batch_size / max(time.perf_counter() - t0, 1e-9)
+        self.cluster_task(dataset)
+        return out
+
+    # ------------------------------------------------------------------
+    def extract_features(self, images) -> torch.Tensor:
+        """Frozen promptless P7 features for the task keys, in exact fp32
+        (TF32 off)."""
+        images = torch.as_tensor(np.asarray(images)).to(self.device, torch.float32)
+        with torch.no_grad(), exact_fp32():
+            return self.model.extract_features(images)
+
+    def cluster_task(self, dataset: GroundingTaskSet) -> None:
+        cfg = self.cfg
+        feats = torch.cat([self.extract_features(b["images"]) for b in
+                           dataset.batches(cfg.batch_size, seed=0, drop_remainder=False)])
+        feats = feats[:len(dataset)]
+        if self.keys is None:
+            self.keys = TaskKeys.create(cfg.total_tasks, cfg.num_key_clusters,
+                                        feats.shape[-1], device=self.device)
+        centers, _ = kmeans(feats, torch.Generator().manual_seed(0), k=cfg.num_key_clusters)
+        self.keys = self.keys.update(dataset.task_index, centers)

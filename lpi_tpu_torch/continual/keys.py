@@ -11,7 +11,7 @@ moved the task-ID accuracy far on the chip, so TF32 stays off around it
 from __future__ import annotations
 
 import contextlib
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -34,6 +34,20 @@ def exact_fp32():
 class TaskKeys:
     centers: torch.Tensor  # [num_tasks, k, dim] fp32
     valid: torch.Tensor  # [num_tasks] bool, sessions trained so far
+
+    @staticmethod
+    def create(num_tasks: int, k: int, dim: int, device=None) -> "TaskKeys":
+        """No task trained yet: zero centres, all invalid."""
+        return TaskKeys(torch.zeros((num_tasks, k, dim), dtype=torch.float32, device=device),
+                        torch.zeros((num_tasks,), dtype=torch.bool, device=device))
+
+    def update(self, task_id: int, centers: torch.Tensor) -> "TaskKeys":
+        """A copy with task `task_id`'s centres set and the task marked
+        valid."""
+        c, v = self.centers.clone(), self.valid.clone()
+        c[task_id] = centers.float()
+        v[task_id] = True
+        return replace(self, centers=c, valid=v)
 
     def to(self, device) -> "TaskKeys":
         return TaskKeys(self.centers.to(device), self.valid.to(device))

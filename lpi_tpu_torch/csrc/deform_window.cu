@@ -39,6 +39,49 @@
 // re-read by up to four neighbouring pixels; those re-reads hit L1/L2 (the
 // whole P3 map fits in the 50 MB L2). Shared-memory tiling and TMA are later
 // work.
+//
+// ---------------------------------------------------------------------------
+// Backward (`lpi_window_taps_bwd`): replaces the Pallas TPU kernels
+// `_bwd_taps_inpad_kernel` (stride 1, the VJP of
+// `window_accumulate_taps_inpad`) and `_bwd_taps_s2_kernel` (stride 2, the
+// VJP of `window_accumulate_taps_s2`; there it returns d of the four parity
+// phases, here d of the unpadded map). Given the cotangent ct [B, Ho, Wo,
+// Cout] fp32 it returns
+//
+//   dh_k[r, c]  = sum over (y, x, dy, dx) with r = (S*y + ky - 1 + dy, ...)
+//                 of g * hat(oy, dy) * hat(ox, dx) * ct[y, x, c]
+//   doy = sum_corners g * dhat(oy, dy) * hat(ox, dx) * s
+//   dox = sum_corners g * hat(oy, dy) * dhat(ox, dx) * s
+//   dg  = sum_corners hat(oy, dy) * hat(ox, dx) * s,   s = sum_c ct[c] * h_k[corner, c]
+//
+// with dhat(o, d) = -sign(o - d) where |o - d| < 1, else 0 (so an integer
+// offset gives 0 from every displacement). One launch runs two kinds of
+// blocks:
+//
+// * dh, as a GATHER (the first blocks): one thread owns VEC channels of one
+//   (input pixel, tap). It visits the output pixels that can reach its pixel
+//   (8 x 8 at stride 1, 4 x 4 at stride 2, since dy, dx lie in [-m, m+1])
+//   and adds g * hat * hat * ct where the hat weights are non-zero, i.e.
+//   where floor(o) or floor(o)+1 lands on its pixel. dh is written once, in
+//   h_all's dtype, after an fp32 sum: no atomics, no zero-fill pass, and the
+//   result is deterministic. The hat weights use the forward's float
+//   expression, so the same corners carry the same weights.
+// * doy, dox, dgate (the remaining blocks): one warp per (output pixel,
+//   tap). Lanes stride over the Cout channels VEC at a time (one warp spans
+//   256 bf16 channels in one pass, 256 fp32 channels in two), form the four
+//   corner dot products s, and one warp-shuffle sum per output reduces them.
+//   The corners are skipped only outside the per-axis support |o - d| < 1
+//   (which hat and dhat share), the window and the map, never on the gate:
+//   dgate does not carry g.
+//
+// Bound on an H100: bytes. The floor reads h_all, ct and the three offset
+// maps once and writes dh_all and the three gradient maps once: at P3 of the
+// 448 px train step (4 x 56 x 56, K*Cout = 2304, bf16) that is 2 x 58 MB +
+// 12.8 MB + 2 x 1.4 MB, about 39 us. The arithmetic (4 corners x 2 flops per
+// channel for s, 64 or 16 weight tests per dh group) is a few us at the fp32
+// rate. The gather re-reads each offset triple and ct vector from L1/L2 for
+// every input pixel that a corner reaches; tiling ct in shared memory is
+// later work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -161,6 +204,245 @@ cudaError_t dispatch(const void* h, const float* oy, const float* ox, const floa
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+
+__device__ __forceinline__ void from_float(float v, float* p) { *p = v; }
+__device__ __forceinline__ void from_float(float v, __nv_bfloat16* p) { *p = __float2bfloat16(v); }
+
+// Store VEC floats as T; VEC * sizeof(T) == 16 uses one 16-byte store.
+template <typename T, int VEC>
+__device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&v)[VEC]) {
+  if constexpr (VEC * sizeof(T) == 16) {
+    uint4 raw;
+    T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) from_float(v[i], e + i);
+    *reinterpret_cast<uint4*>(p) = raw;
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) from_float(v[i], p + i);
+  }
+}
+
+// Load VEC fp32 cotangent values (16-byte loads when VEC is a multiple of 4).
+template <int VEC>
+__device__ __forceinline__ void load_ct(const float* __restrict__ p, float (&v)[VEC]) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; i += 4) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(p + i));
+      v[i] = q.x; v[i + 1] = q.y; v[i + 2] = q.z; v[i + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v[i] = __ldg(p + i);
+  }
+}
+
+__device__ __forceinline__ int floor_div(int a, int s) {
+  return a >= 0 ? a / s : -((-a + s - 1) / s);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// dh gather: thread `t` owns VEC channels of one (input pixel, tap).
+template <typename T, int STRIDE, int VEC>
+__device__ __forceinline__ void dh_gather(
+    const float* __restrict__ oy, const float* __restrict__ ox,
+    const float* __restrict__ gate, const float* __restrict__ ct, T* __restrict__ dh,
+    int H, int W, int Ho, int Wo, int K, int kw, int Cout, int m, long long t,
+    long long total) {
+  if (t >= total) return;
+  const int KC = K * Cout;
+  const int groups = KC / VEC;
+  const int c0 = (int)(t % groups) * VEC;
+  const long long pix = t / groups;
+  const int ix = (int)(pix % W);
+  const long long rest = pix / W;
+  const int iy = (int)(rest % H);
+  const long long b = rest / H;
+  const int k = c0 / Cout;
+  const int c = c0 - k * Cout;
+  const int ky = k / kw, kx = k % kw;
+  const long long plane = (long long)Ho * Wo;
+  const float* oyk = oy + (b * K + k) * plane;
+  const float* oxk = ox + (b * K + k) * plane;
+  const float* gk = gate + (b * K + k) * plane;
+  const float* ctb = ct + b * plane * Cout + c;
+  // output rows whose displacement dy = iy - S*y - ky + 1 lies in [-m, m+1]
+  const int ylo = max(0, -floor_div(-(iy - ky - m), STRIDE));
+  const int yhi = min(Ho - 1, floor_div(iy - ky + 1 + m, STRIDE));
+  const int xlo = max(0, -floor_div(-(ix - kx - m), STRIDE));
+  const int xhi = min(Wo - 1, floor_div(ix - kx + 1 + m, STRIDE));
+
+  float acc[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+
+  for (int y = ylo; y <= yhi; ++y) {
+    const float dy = (float)(iy - STRIDE * y - ky + 1);
+    for (int x = xlo; x <= xhi; ++x) {
+      const long long o = (long long)y * Wo + x;
+      const float wy = fmaxf(0.f, 1.f - fabsf(__ldg(oyk + o) - dy));
+      if (wy == 0.f) continue;
+      const float dx = (float)(ix - STRIDE * x - kx + 1);
+      const float wx = fmaxf(0.f, 1.f - fabsf(__ldg(oxk + o) - dx));
+      if (wx == 0.f) continue;
+      const float cf = __ldg(gk + o) * wy * wx;
+      if (cf == 0.f) continue;
+      float v[VEC];
+      load_ct<VEC>(ctb + o * Cout, v);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] += cf * v[i];
+    }
+  }
+  store_vec<T, VEC>(dh + pix * KC + c0, acc);
+}
+
+// doy, dox, dgate: one warp per (output pixel, tap) item.
+template <typename T, int STRIDE, int VEC>
+__device__ __forceinline__ void offset_grads(
+    const T* __restrict__ h, const float* __restrict__ oy, const float* __restrict__ ox,
+    const float* __restrict__ gate, const float* __restrict__ ct, float* __restrict__ doy,
+    float* __restrict__ dox, float* __restrict__ dgate, int H, int W, int Ho, int Wo,
+    int K, int kw, int Cout, int m, long long item, long long n_items, int lane) {
+  if (item >= n_items) return;  // uniform across the warp
+  const int k = (int)(item % K);
+  const long long pix = item / K;
+  const int xo = (int)(pix % Wo);
+  const long long rest = pix / Wo;
+  const int yo = (int)(rest % Ho);
+  const long long b = rest / Ho;
+  const long long KC = (long long)K * Cout;
+  const long long plane = (long long)Ho * Wo;
+  const long long oidx = (b * K + k) * plane + (long long)yo * Wo + xo;
+  const float o_y = __ldg(oy + oidx), o_x = __ldg(ox + oidx), g = __ldg(gate + oidx);
+  const float lo = (float)(-m), hi = (float)(m + 1);
+  const int by = STRIDE * yo + k / kw - 1;
+  const int bx = STRIDE * xo + k % kw - 1;
+
+  float wy[2], dwy[2], wx[2], dwx[2];
+  int ry[2], rx[2];
+  bool vy[2], vx[2];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const float dy = floorf(o_y) + (float)a;
+    const float ty = o_y - dy;
+    ry[a] = by + (int)dy;
+    vy[a] = dy >= lo && dy <= hi && ry[a] >= 0 && ry[a] < H && fabsf(ty) < 1.f;
+    wy[a] = fmaxf(0.f, 1.f - fabsf(ty));
+    dwy[a] = ty > 0.f ? -1.f : (ty < 0.f ? 1.f : 0.f);
+    const float dx = floorf(o_x) + (float)a;
+    const float tx = o_x - dx;
+    rx[a] = bx + (int)dx;
+    vx[a] = dx >= lo && dx <= hi && rx[a] >= 0 && rx[a] < W && fabsf(tx) < 1.f;
+    wx[a] = fmaxf(0.f, 1.f - fabsf(tx));
+    dwx[a] = tx > 0.f ? -1.f : (tx < 0.f ? 1.f : 0.f);
+  }
+
+  const T* hk = h + b * H * W * KC + (long long)k * Cout;
+  const float* ctp = ct + pix * Cout;
+  float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  for (int c = lane * VEC; c < Cout; c += 32 * VEC) {
+    float cv[VEC];
+    load_ct<VEC>(ctp + c, cv);
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      if (!vy[a]) continue;
+#pragma unroll
+      for (int bb = 0; bb < 2; ++bb) {
+        if (!vx[bb]) continue;
+        float hv[VEC];
+        load_vec<T, VEC>(hk + ((long long)ry[a] * W + rx[bb]) * KC + c, hv);
+        float p = 0.f;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) p += cv[i] * hv[i];
+        s[a][bb] += p;
+      }
+    }
+  }
+  float pdy = 0.f, pdx = 0.f, pdg = 0.f;
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+#pragma unroll
+    for (int bb = 0; bb < 2; ++bb) {
+      if (!(vy[a] && vx[bb])) continue;
+      pdy += g * dwy[a] * wx[bb] * s[a][bb];
+      pdx += g * wy[a] * dwx[bb] * s[a][bb];
+      pdg += wy[a] * wx[bb] * s[a][bb];
+    }
+  }
+  pdy = warp_sum(pdy);
+  pdx = warp_sum(pdx);
+  pdg = warp_sum(pdg);
+  if (lane == 0) {
+    doy[oidx] = pdy;
+    dox[oidx] = pdx;
+    dgate[oidx] = pdg;
+  }
+}
+
+// Blocks [0, dh_blocks) gather dh; the rest compute doy, dox and dgate.
+template <typename T, int STRIDE, int VEC>
+__global__ void __launch_bounds__(kBwdThreads)
+window_taps_bwd_kernel(const T* __restrict__ h, const float* __restrict__ oy,
+                       const float* __restrict__ ox, const float* __restrict__ gate,
+                       const float* __restrict__ ct, T* __restrict__ dh,
+                       float* __restrict__ doy, float* __restrict__ dox,
+                       float* __restrict__ dgate, int B, int H, int W, int Ho, int Wo,
+                       int K, int kw, int Cout, int m, long long dh_blocks) {
+  if ((long long)blockIdx.x < dh_blocks) {
+    const long long total = (long long)B * H * W * (K * Cout / VEC);
+    dh_gather<T, STRIDE, VEC>(oy, ox, gate, ct, dh, H, W, Ho, Wo, K, kw, Cout, m,
+                              (long long)blockIdx.x * kBwdThreads + threadIdx.x, total);
+  } else {
+    const long long n_items = (long long)B * Ho * Wo * K;
+    const long long item = ((long long)blockIdx.x - dh_blocks) * kBwdWarps + threadIdx.x / 32;
+    offset_grads<T, STRIDE, VEC>(h, oy, ox, gate, ct, doy, dox, dgate, H, W, Ho, Wo, K,
+                                 kw, Cout, m, item, n_items, threadIdx.x % 32);
+  }
+}
+
+template <typename T, int STRIDE, int VEC>
+cudaError_t launch_bwd(const void* h, const float* oy, const float* ox, const float* gate,
+                       const float* ct, void* dh, float* doy, float* dox, float* dgate,
+                       int B, int H, int W, int Ho, int Wo, int K, int kw, int Cout, int m,
+                       cudaStream_t stream) {
+  const long long dh_threads = (long long)B * H * W * (K * Cout / VEC);
+  const long long dh_blocks = (dh_threads + kBwdThreads - 1) / kBwdThreads;
+  const long long off_blocks = ((long long)B * Ho * Wo * K + kBwdWarps - 1) / kBwdWarps;
+  if (dh_blocks + off_blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
+  window_taps_bwd_kernel<T, STRIDE, VEC><<<(unsigned)(dh_blocks + off_blocks), kBwdThreads, 0,
+                                           stream>>>(
+      static_cast<const T*>(h), oy, ox, gate, ct, static_cast<T*>(dh), doy, dox, dgate, B, H,
+      W, Ho, Wo, K, kw, Cout, m, dh_blocks);
+  return cudaGetLastError();
+}
+
+template <int STRIDE>
+cudaError_t dispatch_bwd(const void* h, const float* oy, const float* ox, const float* gate,
+                         const float* ct, void* dh, float* doy, float* dox, float* dgate,
+                         int B, int H, int W, int Ho, int Wo, int K, int kw, int Cout, int m,
+                         int is_bf16, int vec, cudaStream_t s) {
+  if (is_bf16) {
+    if (vec == 8) return launch_bwd<__nv_bfloat16, STRIDE, 8>(h, oy, ox, gate, ct, dh, doy, dox, dgate, B, H, W, Ho, Wo, K, kw, Cout, m, s);
+    if (vec == 1) return launch_bwd<__nv_bfloat16, STRIDE, 1>(h, oy, ox, gate, ct, dh, doy, dox, dgate, B, H, W, Ho, Wo, K, kw, Cout, m, s);
+  } else {
+    if (vec == 4) return launch_bwd<float, STRIDE, 4>(h, oy, ox, gate, ct, dh, doy, dox, dgate, B, H, W, Ho, Wo, K, kw, Cout, m, s);
+    if (vec == 1) return launch_bwd<float, STRIDE, 1>(h, oy, ox, gate, ct, dh, doy, dox, dgate, B, H, W, Ho, Wo, K, kw, Cout, m, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Launches on `stream`, does not
@@ -182,5 +464,34 @@ extern "C" int lpi_window_taps_fwd(const void* h, const void* oy, const void* ox
     return (int)dispatch<1>(h, fy, fx, fg, fo, B, H, W, Ho, Wo, K, kw, Cout, m, is_bf16, vec, s);
   if (stride == 2)
     return (int)dispatch<2>(h, fy, fx, fg, fo, B, H, W, Ho, Wo, K, kw, Cout, m, is_bf16, vec, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Backward of `lpi_window_taps_fwd`: ct [B, Ho, Wo, Cout] fp32 -> dh (h's
+// shape and type), doy, dox, dgate [B, K, Ho, Wo] fp32. One launch on
+// `stream`, no synchronisation, no allocation; every output element is
+// written, so the outputs need no zero fill.
+extern "C" int lpi_window_taps_bwd(const void* h, const void* oy, const void* ox,
+                                   const void* gate, const void* ct, void* dh, void* doy,
+                                   void* dox, void* dgate, int B, int H, int W, int Ho,
+                                   int Wo, int K, int kw, int Cout, int m, int stride,
+                                   int is_bf16, int vec, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || Ho <= 0 || Wo <= 0 || K <= 0 || kw <= 0 ||
+      Cout <= 0 || m < 0 || Cout % vec != 0)
+    return (int)cudaErrorInvalidValue;
+  const float* fy = static_cast<const float*>(oy);
+  const float* fx = static_cast<const float*>(ox);
+  const float* fg = static_cast<const float*>(gate);
+  const float* fc = static_cast<const float*>(ct);
+  float* gy = static_cast<float*>(doy);
+  float* gx = static_cast<float*>(dox);
+  float* gg = static_cast<float*>(dgate);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (stride == 1)
+    return (int)dispatch_bwd<1>(h, fy, fx, fg, fc, dh, gy, gx, gg, B, H, W, Ho, Wo, K, kw,
+                                Cout, m, is_bf16, vec, s);
+  if (stride == 2)
+    return (int)dispatch_bwd<2>(h, fy, fx, fg, fc, dh, gy, gx, gg, B, H, W, Ho, Wo, K, kw,
+                                Cout, m, is_bf16, vec, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,118 @@
+"""Grounding task sets and the synthetic referring-expression fixture (host
+copy of the parts of `lpi_tpu/data/grounding.py` that the train step uses).
+
+Batches are static-shape numpy dicts: images as stored, GT boxes padded to
+`max_boxes` with a validity mask, text tokenized to `max_len` tokens with a
+token-level positive map per box. The shuffling and the synthetic data use
+numpy's `RandomState` exactly as the JAX package does, so both packages see
+equal batches. The train-time augmentation pipeline is not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Iterator, List, Optional, Sequence
+
+import numpy as np
+
+from lpi_tpu_torch.data.bert_tokenizer import BertTokenizer, positive_map_from_spans
+
+
+@dataclass
+class GroundingExample:
+    image: np.ndarray  # [H, W, 3] float32 RGB in [0, 1]
+    caption: str
+    boxes: np.ndarray  # [G, 4] xyxy in image coordinates
+    token_spans: List[List[tuple]]  # per box: [(char_beg, char_end), ...]
+    task_index: int
+
+
+@dataclass
+class GroundingTaskSet:
+    """One continual task's examples, batched statically."""
+
+    examples: List[GroundingExample]
+    tokenizer: BertTokenizer
+    max_boxes: int = 20
+    task_index: int = 0
+    augment: Optional[object] = None
+
+    def __post_init__(self):
+        if self.augment is not None:
+            raise NotImplementedError("the train-time augmentation is not ported yet")
+
+    def __len__(self):
+        return len(self.examples)
+
+    def _pack(self, batch: Sequence[GroundingExample]) -> Dict[str, np.ndarray]:
+        B = len(batch)
+        max_len = self.tokenizer.max_len
+        ids, mask, offsets = self.tokenizer([e.caption for e in batch])
+        G = self.max_boxes
+        boxes = np.zeros((B, G, 4), np.float32)
+        valid = np.zeros((B, G), bool)
+        pmap = np.zeros((B, G, max_len), np.float32)
+        for i, e in enumerate(batch):
+            g = min(len(e.boxes), G)
+            boxes[i, :g] = e.boxes[:g]
+            valid[i, :g] = True
+            pmap[i, :g] = positive_map_from_spans(e.token_spans[:g], offsets[i], max_len)
+        return {"images": np.stack([e.image for e in batch]), "input_ids": ids,
+                "attention_mask": mask, "gt_boxes": boxes, "gt_valid": valid,
+                "positive_map": pmap}
+
+    def batches(self, batch_size: int, seed: int = 0,
+                drop_remainder: bool = True) -> Iterator[dict]:
+        """Shuffled batches (numpy RandomState(seed)); without
+        `drop_remainder` the last batch is filled from the start of the
+        order."""
+        n = len(self)
+        order = np.random.RandomState(seed).permutation(n)
+        end = n - n % batch_size if drop_remainder else n
+        for i in range(0, end, batch_size):
+            idx = order[i:i + batch_size]
+            if len(idx) < batch_size:
+                idx = np.concatenate([idx, order[:batch_size - len(idx)]])
+            yield self._pack([self.examples[j] for j in idx])
+
+    @classmethod
+    def concat(cls, sets: Sequence["GroundingTaskSet"]) -> "GroundingTaskSet":
+        """One task set over the concatenated examples (the first set's
+        tokenizer, box padding and task index)."""
+        first = sets[0]
+        return cls([e for s in sets for e in s.examples], first.tokenizer,
+                   max_boxes=first.max_boxes, task_index=first.task_index)
+
+
+def synthetic_grounding_task(task_index: int, num_samples: int = 8, image_size: int = 64,
+                             tokenizer: Optional[BertTokenizer] = None, max_boxes: int = 4,
+                             seed: int = 0) -> GroundingTaskSet:
+    """Synthetic referring expressions: a task-coloured rectangle (sides in
+    [3/8, 5/8] of the image, so ATSS finds positives) on noise with a task
+    background cue, captioned "the <object> on the left side" with the
+    object word as the box's span."""
+    rng = np.random.RandomState(seed + 997 * task_index)
+    names = ["appliance", "ball", "bench", "phone", "bag", "lamp", "pan",
+             "chair", "car", "pizza", "dog", "person"]
+    colors = np.array([
+        [1.0, 0.2, 0.2], [0.2, 1.0, 0.2], [0.2, 0.2, 1.0], [1.0, 1.0, 0.2],
+        [1.0, 0.2, 1.0], [0.2, 1.0, 1.0], [1.0, 1.0, 1.0], [0.7, 0.4, 0.1],
+        [0.1, 0.4, 0.7], [0.6, 0.1, 0.6], [0.4, 0.9, 0.4], [0.9, 0.9, 0.6]])
+    name = names[task_index % len(names)]
+    examples = []
+    for _ in range(num_samples):
+        img = rng.rand(image_size, image_size, 3).astype(np.float32) * 0.2
+        img += 0.6 * np.sin(task_index + np.arange(3))[None, None, :]
+        w = rng.randint(image_size * 3 // 8, image_size * 5 // 8)
+        h = rng.randint(image_size * 3 // 8, image_size * 5 // 8)
+        x = rng.randint(0, image_size - w)
+        y = rng.randint(0, image_size - h)
+        img[y:y + h, x:x + w] += 0.3 + 0.6 * colors[task_index % 12]
+        caption = f"the {name} on the left side"
+        beg = caption.index(name)
+        examples.append(GroundingExample(
+            image=img, caption=caption,
+            boxes=np.asarray([[x, y, x + w, y + h]], np.float32),
+            token_spans=[[(beg, beg + len(name))]], task_index=task_index))
+    tok = tokenizer or BertTokenizer(max_len=16)
+    return GroundingTaskSet(examples, tok, max_boxes=max_boxes, task_index=task_index)

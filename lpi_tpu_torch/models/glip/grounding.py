@@ -1,13 +1,14 @@
 """GroundedVLModel, the LPI grounding model (counterpart of
-`lpi_tpu/models/glip/grounding.py`; eval path only).
+`lpi_tpu/models/glip/grounding.py`).
 
   prompts[task] -> FusedDualEncoder (inject + interact) -> FPN P3..P7
                 -> tunable_linear on the text embeddings
                 -> VLDyHead (DyConv tower + dot-product token head)
+                -> ATSS losses (x0.8) + 0.1 x alignment + 0.1 x task loss
 
-`forward_tasks` and `extract_features` are ported; the train `__call__`
-with its auxiliary losses, `forward_knowledge` and the MaPLe / S-Prompts
-pools are not yet.
+The train `forward` (one task's prompts), `grounding_aux_losses`, the eval
+`forward_tasks` and `extract_features` are ported; `forward_knowledge` and
+the MaPLe / S-Prompts pools are not yet.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 import torch.nn as nn
 
 from lpi_tpu_torch.config import GroundingConfig
+from lpi_tpu_torch.losses.clip_loss import clip_loss, task_prompt_loss_masked
 from lpi_tpu_torch.models.glip.anchors import concat_anchors
 from lpi_tpu_torch.models.glip.fpn import FPN
 from lpi_tpu_torch.models.glip.fused import FusedDualEncoder
@@ -67,6 +69,18 @@ class GroundedVLModel(nn.Module):
             "level_counts": counts,
         }
 
+    def forward(self, images, input_ids, attention_mask, task_id: int = 0):
+        """Train forward with task `task_id`'s prompts. images [B, H, W, 3]
+        NHWC; -> (flat head outputs, language dict, visual prompt [L, P, Dv],
+        textual prompt [L, P, Dt])."""
+        vis_p, txt_p = self.prompts(task_id)
+        language, outs = self.encoder(
+            images, input_ids, attention_mask, vis_p, txt_p, task_id,
+            num_pooled_layers=self.cfg.bert.num_pooled_layers)
+        flat = self._head_flat(self.fpn(outs), language["embedded"], attention_mask,
+                               images.shape[0])
+        return flat, language, vis_p, txt_p
+
     def forward_tasks(self, images, input_ids, attention_mask, task_ids):
         """Eval forward: per-sample prompts gathered by (inferred) task ids;
         the interact module follows the first sample's task. images
@@ -90,6 +104,28 @@ class GroundedVLModel(nn.Module):
         last = self.fpn(outs)[-1]
         flat = last.reshape(B, -1).float()
         return flat * torch.rsqrt((flat * flat).sum(-1, keepdim=True) + 1e-12)
+
+
+def grounding_aux_losses(vis_p: torch.Tensor, txt_p: torch.Tensor,
+                         vis_all: torch.Tensor, txt_all: torch.Tensor, task_id: int,
+                         task_relation: torch.Tensor, cfg: GroundingConfig) -> dict:
+    """Alignment and inter-task losses, grounding flavour: alignment is
+    0.1 x clip_loss(100 v t^T) over the L2-normalised channel means of the
+    current prompts; the task loss is 0.1 x the masked inter-task loss at
+    temperature 0.01 over all tasks' flattened prompts (0 at task 0)."""
+    losses = {}
+    lpi = cfg.lpi
+    if lpi.layer_alignment:
+        v = vis_p.float().mean(-1)
+        t = txt_p.float().mean(-1)
+        v = v * torch.rsqrt((v * v).sum(-1, keepdim=True) + 1e-12)
+        t = t * torch.rsqrt((t * t).sum(-1, keepdim=True) + 1e-12)
+        losses["alignment_loss"] = 0.1 * clip_loss(100.0 * v @ t.T)
+    if lpi.task_alignment:
+        T = vis_all.shape[0]
+        losses["task_loss"] = 0.1 * task_prompt_loss_masked(
+            vis_all.reshape(T, -1), txt_all.reshape(T, -1), task_relation, task_id, 0.01)
+    return losses
 
 
 @torch.no_grad()

@@ -24,11 +24,12 @@ import torch.nn.functional as F
 
 from lpi_tpu_torch.config import DyHeadConfig
 from lpi_tpu_torch.models.layers import Conv, Dense, GroupNorm
+from lpi_tpu_torch.ops.clip import clip
 from lpi_tpu_torch.ops.deform_conv import deform_conv2d
 
 
 def h_sigmoid(x):
-    return torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+    return clip(x + 3.0, 0.0, 6.0) / 6.0
 
 
 class Conv3x3Norm(nn.Module):
@@ -185,7 +186,7 @@ class VLDyHead(nn.Module):
             dt = torch.promote_types(q.dtype, pt.dtype)
             logit = torch.matmul(q.to(dt), pt.to(dt).transpose(1, 2)) / torch.exp(self.log_scale)
             logit = logit + tokens_bias[:, None, :]
-            out["dot_logits"].append(torch.clamp(logit, -50000.0, 50000.0))
+            out["dot_logits"].append(clip(logit, -50000.0, 50000.0))
         return out
 
 

@@ -1,10 +1,12 @@
-"""Box utilities for the grounding postprocess (counterpart of
-`lpi_tpu/ops/boxes.py`, the parts inference needs). Boxes are
-[x1, y1, x2, y2]."""
+"""Box utilities for the grounding postprocess and the ATSS losses
+(counterpart of `lpi_tpu/ops/boxes.py`): IoU, per-row GIoU, centres and the
+ATSS box coder. Boxes are [x1, y1, x2, y2]."""
 
 from __future__ import annotations
 
 import torch
+
+from lpi_tpu_torch.ops.clip import clip
 
 
 def box_area(boxes: torch.Tensor) -> torch.Tensor:
@@ -22,6 +24,43 @@ def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return inter / torch.clamp(union, min=1e-9)
 
 
+def elementwise_giou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-row GIoU: a [..., 4], b [..., 4] -> [...]."""
+    lt = torch.maximum(a[..., :2], b[..., :2])
+    rb = torch.minimum(a[..., 2:], b[..., 2:])
+    inter = torch.prod(clip(rb - lt, 0.0), -1)
+    union = box_area(a) + box_area(b) - inter
+    iou = inter / clip(union, 1e-9)
+    hl = torch.minimum(a[..., :2], b[..., :2])
+    hr = torch.maximum(a[..., 2:], b[..., 2:])
+    hull = torch.prod(clip(hr - hl, 0.0), -1)
+    return iou - (hull - union) / clip(hull, 1e-9)
+
+
+def box_center(boxes: torch.Tensor) -> torch.Tensor:
+    return torch.stack([(boxes[..., 0] + boxes[..., 2]) / 2,
+                        (boxes[..., 1] + boxes[..., 3]) / 2], dim=-1)
+
+
+def encode_boxes(gt: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+    """ATSS box coder: gt relative to anchors as (dx, dy, dw, dh) with
+    weights (10, 10, 5, 5)."""
+    aw = anchors[..., 2] - anchors[..., 0]
+    ah = anchors[..., 3] - anchors[..., 1]
+    ax = anchors[..., 0] + 0.5 * aw
+    ay = anchors[..., 1] + 0.5 * ah
+    gw = gt[..., 2] - gt[..., 0]
+    gh = gt[..., 3] - gt[..., 1]
+    gx = gt[..., 0] + 0.5 * gw
+    gy = gt[..., 1] + 0.5 * gh
+    return torch.stack([
+        10.0 * (gx - ax) / clip(aw, 1e-9),
+        10.0 * (gy - ay) / clip(ah, 1e-9),
+        5.0 * torch.log(clip(gw, 1e-9) / clip(aw, 1e-9)),
+        5.0 * torch.log(clip(gh, 1e-9) / clip(ah, 1e-9)),
+    ], dim=-1)
+
+
 def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor,
                  clamp: float = 4.135166556742356) -> torch.Tensor:
     """ATSS box coder inverse, weights (10, 10, 5, 5), dw/dh clamped at
@@ -32,8 +71,8 @@ def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor,
     ay = anchors[..., 1] + 0.5 * ah
     dx = deltas[..., 0] / 10.0
     dy = deltas[..., 1] / 10.0
-    dw = torch.clamp(deltas[..., 2] / 5.0, max=clamp)
-    dh = torch.clamp(deltas[..., 3] / 5.0, max=clamp)
+    dw = clip(deltas[..., 2] / 5.0, hi=clamp)
+    dh = clip(deltas[..., 3] / 5.0, hi=clamp)
     cx = dx * aw + ax
     cy = dy * ah + ay
     w = torch.exp(dw) * aw

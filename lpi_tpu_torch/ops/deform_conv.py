@@ -5,17 +5,20 @@ Sampling is linear, so each tap's matmul commutes with it:
 `sample(feat) @ W_k == sample(feat @ W_k)`. One fp32 matmul
 `feats [B*H*W, C] @ W [C, K*Cout]` gives the tap-major product map; the
 gated hat-window sum over it runs in one kernel call
-(`ops/deform_window_kernel.py`). Offsets are clamped to +-max_offset and
-borders are zero-padded, exactly as in the JAX package. Unlike there, every
-Cout takes the kernel: the TPU's 128-lane rule does not carry over.
+(`ops/deform_window_kernel.py:window_taps`, an autograd Function whose
+backward is a kernel too). Offsets are clamped to +-max_offset and borders
+are zero-padded, exactly as in the JAX package; the clamp is written as
+`ops/clip.py:clip`, whose gradient at exactly +-max_offset is 0.5 as
+`jnp.clip`'s is (`Tensor.clamp` passes 1 there). Unlike the JAX package,
+every Cout takes the kernel: the TPU's 128-lane rule does not carry over.
 """
 
 from __future__ import annotations
 
 import torch
 
-from lpi_tpu_torch.ops.deform_window_kernel import (
-    window_accumulate_taps_inpad, window_accumulate_taps_s2)
+from lpi_tpu_torch.ops.clip import clip
+from lpi_tpu_torch.ops.deform_window_kernel import window_taps
 
 
 def deform_conv2d(
@@ -39,7 +42,7 @@ def deform_conv2d(
     m = max_offset
     Ho = (H + stride - 1) // stride
     Wo = (W + stride - 1) // stride
-    off = offsets.reshape(B, Ho, Wo, K, 2).float().clamp(-m, m)
+    off = clip(offsets.reshape(B, Ho, Wo, K, 2).float(), -m, m)
     gate = (torch.sigmoid(mask.float()) if mask is not None
             else torch.ones((B, Ho, Wo, K), dtype=torch.float32,
                             device=features.device))
@@ -48,9 +51,7 @@ def deform_conv2d(
     oy = off[..., 0].permute(0, 3, 1, 2).contiguous()  # [B, K, Ho, Wo]
     ox = off[..., 1].permute(0, 3, 1, 2).contiguous()
     gk = gate.permute(0, 3, 1, 2).contiguous()
-    accumulate = (window_accumulate_taps_inpad if stride == 1
-                  else window_accumulate_taps_s2)
-    out = accumulate(h_all.contiguous(), oy, ox, gk, m, K, kw)
+    out = window_taps(h_all.contiguous(), oy, ox, gk, m, K, kw, stride)
     if bias is not None:
         out = out + bias.float()
     return out.to(features.dtype)

@@ -8,13 +8,20 @@ h_all [B, H, W, K*Cout]. What remains is the gated hat-window sum
                    * hat(ox_k, dx) * h_k[S*y + ky - 1 + dy, S*x + kx - 1 + dx, c]
 
 with hat(o, d) = max(0, 1 - |o - d|), stride S, zero outside the map and
-fp32 accumulation. Two entry points, each with its own launch counter:
+fp32 accumulation. Four entry points, each with its own launch counter:
 
 * `window_accumulate_taps_inpad`: stride 1, replaces the Pallas TPU kernel
   `lpi_tpu/ops/deform_window_kernel.py:window_accumulate_taps_inpad`;
 * `window_accumulate_taps_s2`: stride 2 on the UNPADDED map at input
   resolution, replaces `window_accumulate_taps_s2` there (whose four parity
-  phases are a TPU layout device with no counterpart here).
+  phases are a TPU layout device with no counterpart here);
+* `window_accumulate_taps_inpad_backward` and
+  `window_accumulate_taps_s2_backward`: their VJPs (the Pallas kernels
+  `_bwd_taps_inpad_kernel` and `_bwd_taps_s2_kernel`), giving d h_all in
+  h_all's dtype and d oy, d ox, d gate in fp32.
+
+`window_taps` is the differentiable entry: a `torch.autograd.Function`
+whose forward and backward are the wrappers above.
 
 The kernels live in `lpi_tpu_torch/csrc/deform_window.cu` (design and bound
 in its header note). A wrapper takes its plain version only for tensors on
@@ -34,6 +41,12 @@ from lpi_tpu_torch.ops import cuda_build
 
 def _hat(o: torch.Tensor, d: int) -> torch.Tensor:
     return torch.clamp(1.0 - (o - float(d)).abs(), min=0.0)
+
+
+def _dhat(o: torch.Tensor, d: int) -> torch.Tensor:
+    """d/do hat(o, d): -sign(o - d) where |o - d| < 1, else 0."""
+    t = o - float(d)
+    return torch.where(t.abs() < 1.0, -torch.sign(t), torch.zeros_like(t))
 
 
 # --------------------------------------------------------------------------
@@ -88,6 +101,53 @@ def window_accumulate_taps_s2_reference(h_all, oy, ox, gate, m: int, K: int,
                          dx + m:dx + m + 2 * Wo - 1:2]
                 out = out + coeff[..., None] * win.float()
     return out
+
+
+def _backward_reference(h_all, oy, ox, gate, ct, m, K, kw, stride):
+    """The VJP as the JAX package's `_bwd_reference` loops it, with the gate
+    and each tap's shifted padding: every displacement adds its window's
+    terms; fp32 sums, d h_all cast to h_all's dtype once."""
+    B, H, W, KC = h_all.shape
+    Cout = KC // K
+    Ho, Wo = oy.shape[2], oy.shape[3]
+    span_y, span_x = stride * (Ho - 1) + 1, stride * (Wo - 1) + 1
+    ct = ct.float()
+    dh = torch.empty((B, H, W, KC), dtype=torch.float32, device=h_all.device)
+    doy, dox, dg = (torch.zeros((B, K, Ho, Wo), dtype=torch.float32,
+                                device=h_all.device) for _ in range(3))
+    for k in range(K):
+        ky, kx = k // kw, k % kw
+        hp = _tap_padded(h_all, k, Cout, m, kw).float()
+        dhp = torch.zeros_like(hp)
+        g = gate[:, k]
+        for dy in range(-m, m + 2):
+            wy, gy = _hat(oy[:, k], dy), _dhat(oy[:, k], dy)
+            rows = slice(dy + m, dy + m + span_y, stride)
+            for dx in range(-m, m + 2):
+                wx, gx = _hat(ox[:, k], dx), _dhat(ox[:, k], dx)
+                cols = slice(dx + m, dx + m + span_x, stride)
+                s = (ct * hp[:, rows, cols]).sum(-1)
+                doy[:, k] += g * gy * wx * s
+                dox[:, k] += g * wy * gx * s
+                dg[:, k] += wy * wx * s
+                dhp[:, rows, cols] += (g * wy * wx)[..., None] * ct
+        dh[..., k * Cout:(k + 1) * Cout] = dhp[:, m + 1 - ky:m + 1 - ky + H,
+                                               m + 1 - kx:m + 1 - kx + W]
+    return dh.to(h_all.dtype), doy, dox, dg
+
+
+def window_accumulate_taps_inpad_backward_reference(h_all, oy, ox, gate, ct,
+                                                    m: int, K: int, kw: int = 3):
+    """Plain VJP of the stride-1 sum: ct [B, H, W, Cout] fp32 -> (d h_all in
+    h_all's dtype, d oy, d ox, d gate [B, K, H, W] fp32)."""
+    return _backward_reference(h_all, oy, ox, gate, ct, m, K, kw, 1)
+
+
+def window_accumulate_taps_s2_backward_reference(h_all, oy, ox, gate, ct,
+                                                 m: int, K: int, kw: int = 3):
+    """Plain VJP of the stride-2 sum: ct [B, Ho, Wo, Cout] fp32 -> (d h_all
+    [B, H, W, K*Cout] of the unpadded map, d oy, d ox, d gate [B, K, Ho, Wo])."""
+    return _backward_reference(h_all, oy, ox, gate, ct, m, K, kw, 2)
 
 
 # --------------------------------------------------------------------------
@@ -154,6 +214,56 @@ def _run(h_all, oy, ox, gate, m, K, kw, stride, reference):
     return _launch(h_all, oy, ox, gate, m, K, kw, stride)
 
 
+def _check_ct(ct, B, Ho, Wo, Cout, device):
+    if tuple(ct.shape) != (B, Ho, Wo, Cout):
+        raise ValueError(f"ct has shape {tuple(ct.shape)}, want {(B, Ho, Wo, Cout)}")
+    if ct.dtype != torch.float32:
+        raise TypeError(f"ct must be float32, got {ct.dtype}")
+    if ct.device != device:
+        raise ValueError(f"ct is on {ct.device}, h_all on {device}")
+
+
+@functools.cache
+def _bwd_entry():
+    fn = cuda_build.load("deform_window").lpi_window_taps_bwd
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_backward(h_all, oy, ox, gate, ct, m, K, kw, stride):
+    B, H, W, Cout, Ho, Wo = _check(h_all, oy, ox, gate, m, K, kw, stride)
+    _check_ct(ct, B, Ho, Wo, Cout, h_all.device)
+    for name, t in (("h_all", h_all), ("oy", oy), ("ox", ox), ("gate", gate), ("ct", ct)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    dh = torch.empty_like(h_all)
+    doy, dox, dg = (torch.empty_like(oy) for _ in range(3))
+    lanes = 16 // h_all.element_size()
+    vec = (lanes if Cout % lanes == 0 and h_all.data_ptr() % 16 == 0
+           and ct.data_ptr() % 16 == 0 else 1)
+    with torch.cuda.device(h_all.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_entry()(h_all.data_ptr(), oy.data_ptr(), ox.data_ptr(), gate.data_ptr(),
+                           ct.data_ptr(), dh.data_ptr(), doy.data_ptr(), dox.data_ptr(),
+                           dg.data_ptr(), B, H, W, Ho, Wo, K, kw, Cout, m, stride,
+                           int(h_all.dtype == torch.bfloat16), vec, stream)
+    if err != 0:
+        raise RuntimeError(f"deform window backward kernel (stride {stride}) failed "
+                           f"to launch: CUDA error {err}")
+    return dh, doy, dox, dg
+
+
+def _run_backward(h_all, oy, ox, gate, ct, m, K, kw, stride, reference):
+    if h_all.device.type == "cpu":
+        B, _, _, Cout, Ho, Wo = _check(h_all, oy, ox, gate, m, K, kw, stride)
+        _check_ct(ct, B, Ho, Wo, Cout, h_all.device)
+        return reference(h_all, oy, ox, gate, ct, m, K, kw)
+    if h_all.device.type != "cuda":
+        raise ValueError(f"no deform window kernel for device {h_all.device}")
+    return _launch_backward(h_all, oy, ox, gate, ct, m, K, kw, stride)
+
+
 def window_accumulate_taps_inpad(h_all, oy, ox, gate, m: int, K: int,
                                  kw: int = 3) -> torch.Tensor:
     """Stride-1 gated window sum from the unpadded product map.
@@ -185,9 +295,67 @@ def window_accumulate_taps_s2(h_all, oy, ox, gate, m: int, K: int,
     return out
 
 
+def window_accumulate_taps_inpad_backward(h_all, oy, ox, gate, ct, m: int, K: int,
+                                          kw: int = 3):
+    """VJP of `window_accumulate_taps_inpad`: ct [B, H, W, Cout] fp32,
+    contiguous -> (d h_all in h_all's shape and dtype, d oy, d ox, d gate
+    [B, K, H, W] fp32). `.launches` counts kernel launches."""
+    out = _run_backward(h_all, oy, ox, gate, ct, m, K, kw, 1,
+                        window_accumulate_taps_inpad_backward_reference)
+    if h_all.device.type == "cuda":
+        window_accumulate_taps_inpad_backward.launches += 1
+    return out
+
+
+def window_accumulate_taps_s2_backward(h_all, oy, ox, gate, ct, m: int, K: int,
+                                       kw: int = 3):
+    """VJP of `window_accumulate_taps_s2`: ct [B, Ho, Wo, Cout] fp32,
+    contiguous -> (d h_all of the unpadded map, d oy, d ox, d gate
+    [B, K, Ho, Wo] fp32). `.launches` counts kernel launches."""
+    out = _run_backward(h_all, oy, ox, gate, ct, m, K, kw, 2,
+                        window_accumulate_taps_s2_backward_reference)
+    if h_all.device.type == "cuda":
+        window_accumulate_taps_s2_backward.launches += 1
+    return out
+
+
+class _WindowTaps(torch.autograd.Function):
+    """Forward and backward through the wrappers: the kernels for CUDA
+    tensors, the plain versions for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, h_all, oy, ox, gate, m, K, kw, stride):
+        ctx.save_for_backward(h_all, oy, ox, gate)
+        ctx.taps = (m, K, kw, stride)
+        fwd = window_accumulate_taps_inpad if stride == 1 else window_accumulate_taps_s2
+        return fwd(h_all, oy, ox, gate, m, K, kw)
+
+    @staticmethod
+    def backward(ctx, ct):
+        m, K, kw, stride = ctx.taps
+        bwd = (window_accumulate_taps_inpad_backward if stride == 1
+               else window_accumulate_taps_s2_backward)
+        # autograd may hand over a strided cotangent; the kernel takes none
+        grads = bwd(*ctx.saved_tensors, ct.contiguous(), m, K, kw)
+        return (*grads, None, None, None, None)
+
+
+def window_taps(h_all, oy, ox, gate, m: int, K: int, kw: int = 3,
+                stride: int = 1) -> torch.Tensor:
+    """Differentiable gated window sum, stride 1 or 2: the arguments and
+    result of `window_accumulate_taps_inpad` / `window_accumulate_taps_s2`,
+    with gradients for h_all, oy, ox and gate."""
+    if stride not in (1, 2):
+        raise ValueError(f"window_taps supports stride 1 and 2, got {stride}")
+    return _WindowTaps.apply(h_all, oy, ox, gate, m, K, kw, stride)
+
+
 window_accumulate_taps_inpad.launches = 0
 window_accumulate_taps_s2.launches = 0
-KERNELS = (window_accumulate_taps_inpad, window_accumulate_taps_s2)
+window_accumulate_taps_inpad_backward.launches = 0
+window_accumulate_taps_s2_backward.launches = 0
+KERNELS = (window_accumulate_taps_inpad, window_accumulate_taps_s2,
+           window_accumulate_taps_inpad_backward, window_accumulate_taps_s2_backward)
 
 
 def reset_launch_counts() -> None:

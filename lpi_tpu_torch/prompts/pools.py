@@ -35,6 +35,12 @@ class DecomposedPromptPool(nn.Module):
         self.d3_visual = nn.Parameter(torch.zeros(T, visual_dim, r))
         self.d3_textual = nn.Parameter(torch.zeros(T, textual_dim, r))
 
+    def forward(self, task_id: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Prompts of one task: ([L, P, Dv], [L, P, Dt])."""
+        d1 = self.d1_share[task_id]
+        return (compose_cp(d1, self.d2_visual[task_id], self.d3_visual[task_id]),
+                compose_cp(d1, self.d2_textual[task_id], self.d3_textual[task_id]))
+
     def all_prompts(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full stacks: ([T, L, P, Dv], [T, L, P, Dt])."""
         return (compose_cp(self.d1_share, self.d2_visual, self.d3_visual),

@@ -1,4 +1,5 @@
-"""The CUDA deform window kernels against their plain PyTorch versions.
+"""The CUDA deform window kernels, forward and backward, against their
+plain PyTorch versions.
 
 These need a CUDA card and `nvcc` (the kernels have no CPU form), so they
 skip elsewhere. The file imports neither JAX nor the JAX package, so that it
@@ -26,7 +27,7 @@ def card():
 
 def _inputs(rng, H, W, Cout, stride, m=3, K=9, B=1):
     """Product map, offsets (with exact integers and the +-m edges) and
-    gate, on the card."""
+    gate (with exact 0 and 1 entries), on the card."""
     Ho, Wo = (H + stride - 1) // stride, (W + stride - 1) // stride
     o = ((rng.rand(2, B, K, Ho, Wo) * 2 - 1) * m).astype(np.float32)
     o.reshape(-1)[::5] = np.round(o.reshape(-1)[::5])
@@ -34,6 +35,8 @@ def _inputs(rng, H, W, Cout, stride, m=3, K=9, B=1):
     o.reshape(-1)[::11] = -m
     h = rng.randn(B, H, W, K * Cout).astype(np.float32)
     g = rng.rand(B, K, Ho, Wo).astype(np.float32)
+    g.reshape(-1)[::6] = 0.0
+    g.reshape(-1)[::13] = 1.0
     return [torch.from_numpy(a).cuda() for a in (h, o[0], o[1], g)]
 
 
@@ -55,6 +58,56 @@ def test_kernel_matches_plain(card, stride, dtype, Cout):
 
 
 @pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Cout", [256, 12])
+def test_backward_kernel_matches_plain(card, stride, dtype, Cout):
+    """d h_all within 1e-5 of the plain fp32 sum (plus half a bf16 step,
+    2^-8 |x|, for a bf16 map, which the kernel rounds once); d oy, d ox and
+    d gate within 1e-5."""
+    rng = np.random.RandomState(3)
+    fn = (tdk.window_accumulate_taps_inpad_backward if stride == 1
+          else tdk.window_accumulate_taps_s2_backward)
+    ref = (tdk.window_accumulate_taps_inpad_backward_reference if stride == 1
+           else tdk.window_accumulate_taps_s2_backward_reference)
+    h, oy, ox, g = _inputs(rng, 14, 13, Cout, stride, B=2)
+    h = h.to(dtype)
+    ct = torch.randn(2, oy.shape[2], oy.shape[3], Cout, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(0))
+    before = fn.launches
+    got = fn(h, oy, ox, g, ct, 3, 9)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = ref(h.float(), oy, ox, g, ct, 3, 9)
+    assert got[0].dtype == dtype
+    for a, b in zip(got, want):
+        bar = 1e-5 * max(1.0, b.abs().max().item())
+        if a.dtype == torch.bfloat16:
+            bar = bar + 2.0 ** -8 * b.abs()
+        assert ((a.float() - b).abs() <= bar).all()
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_deform_conv_gradients_card_match_cpu(card, stride):
+    rng = np.random.RandomState(4)
+    H = W = 9
+    Ho = (H + stride - 1) // stride
+    off = rng.randn(1, Ho, Ho, 18) * 2
+    off.reshape(-1)[::7] = 3.0  # exactly +m: the clip passes half the gradient
+    mask = rng.randn(1, Ho, Ho, 9)
+    mask.reshape(-1)[::6] = -1e4  # gate exactly 0
+    args = [rng.randn(1, H, W, 16), off, rng.randn(3, 3, 16, 32) * 0.2, rng.randn(32), mask]
+    ct = torch.from_numpy(rng.randn(1, Ho, Ho, 32).astype(np.float32))
+    grads = {}
+    for device in ("cpu", "cuda"):
+        ts = [torch.tensor(a.astype(np.float32), device=device, requires_grad=True)
+              for a in args]
+        tdc.deform_conv2d(*ts[:4], mask=ts[4], stride=stride).backward(ct.to(device))
+        grads[device] = [t.grad.cpu() for t in ts]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * max(1.0, b.abs().max().item()))
+
+
+@pytest.mark.parametrize("stride", [1, 2])
 def test_deform_conv_card_matches_cpu(card, stride):
     rng = np.random.RandomState(1)
     H = W = 9
@@ -71,3 +124,17 @@ def test_non_contiguous_map_is_refused(card):
     h, oy, ox, g = _inputs(np.random.RandomState(2), 6, 6, 8, 1)
     with pytest.raises(ValueError):
         tdk.window_accumulate_taps_inpad(h.transpose(1, 2), oy, ox, g, 3, 9)
+    ct = torch.zeros(1, 6, 6, 8, device="cuda")
+    with pytest.raises(ValueError):
+        tdk.window_accumulate_taps_inpad_backward(h, oy, ox, g, ct.transpose(1, 2), 3, 9)
+
+
+def test_strided_cotangent_goes_through_the_function(card):
+    """Autograd may hand the Function a strided cotangent; it is made
+    contiguous before the kernel sees it."""
+    h, oy, ox, g = _inputs(np.random.RandomState(5), 6, 6, 8, 1)
+    h.requires_grad_(True)
+    out = tdk.window_taps(h, oy, ox, g, 3, 9, 3, 1)
+    out.transpose(1, 2).sum(dim=(0, 1, 2))[0].backward()
+    torch.cuda.synchronize()
+    assert torch.isfinite(h.grad).all() and h.grad.abs().sum() > 0
