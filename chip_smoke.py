@@ -25,22 +25,44 @@ non-zero):
 6. compute one fp32 `_losses` and its pool gradients at batch 1 on the card
    and on the CPU from the same seeded weights and compare them.
 
-The last lines are the kernels' JSON record, the card's name and power
-limit, and `{"ok": true, "device": {...}}`.
+The fused deformable conv (`deform_impl="fused"`) and the quality gate:
+
+   2c. hold the fused forward and backward kernels (with and without d W)
+       against their plain versions at every shape of the 448 px path
+       (batch 1 and 4, 256 channels) and of the gate's config (16
+       channels, 64 px), and time them;
+   3b. drive the fused predictor (bf16, full width) through a few requests
+       with its launch counter checked, profile one, and compare the fp32
+       fused model with the fp32 "pallas" route on the card;
+   5b. drive the fused train step as phase 5 drives the other, profile one
+       step, and compare one fp32 `_losses` and its pool gradient, card vs
+       CPU, as phase 6 does;
+   7.  run the grounding quality gate (`lpi_tpu_torch.bench`) with the
+       gate's own config and with `deform_impl="fused"`, each held to the
+       gate's bars.
+
+Every launch counter is set to 0 just before the path it reads and read
+just after. The last lines are the kernels' JSON record, the card's name
+and power limit, and `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+# cuBLAS reads this before its first use; the quality gate (phase 7) runs
+# with deterministic algorithms, which need it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # fp32 outside the tensor cores
@@ -55,6 +77,10 @@ TOWERS = 6
 PREDICT_BATCH, TRAIN_BATCH = 1, 4
 TRAIN_TASK = 1
 REL_TOL = 1e-5  # kernel vs plain: both sum in fp32, in different orders
+# the gate's config at 64 px: levels 8, 4, 2, 1, 1; two towers, batch 4
+GATE_S1_SHAPES = {8: 1, 4: 2, 2: 2, 1: 4}
+GATE_S2_SHAPES = {8: 1, 4: 1, 2: 1, 1: 1}
+GATE_TOWERS, GATE_CHANNELS = 2, 16
 
 
 def log(*args):
@@ -138,12 +164,9 @@ def backward_bound_ms(h_all: torch.Tensor, oy: torch.Tensor, Cout: int):
     return _bound(nbytes, B * Ho * Wo * Cout * K * 4 * 2 * 2)
 
 
-def kernel_inputs(gen, side: int, stride: int, dtype, batch: int, Cout: int = 256):
-    """Product map, offsets (uniform in [-m, m], with exact integers and the
-    +-m edges mixed in), gate (with exact 0 and 1 entries) and a
-    cotangent."""
-    Ho = (side + stride - 1) // stride
-    h = torch.randn(batch, side, side, K * Cout, device="cuda", generator=gen).to(dtype)
+def offset_inputs(gen, batch: int, Ho: int):
+    """Offsets (uniform in [-m, m], with exact integers and the +-m edges
+    mixed in) and a gate (with exact 0 and 1 entries), [B, K, Ho, Ho]."""
     oy = (torch.rand(batch, K, Ho, Ho, device="cuda", generator=gen) * 2 - 1) * M
     ox = (torch.rand(batch, K, Ho, Ho, device="cuda", generator=gen) * 2 - 1) * M
     oy.view(-1)[::7] = torch.round(oy.view(-1)[::7])
@@ -153,13 +176,20 @@ def kernel_inputs(gen, side: int, stride: int, dtype, batch: int, Cout: int = 25
     gate = torch.rand(batch, K, Ho, Ho, device="cuda", generator=gen)
     gate.view(-1)[::6] = 0.0
     gate.view(-1)[::17] = 1.0
+    return oy.contiguous(), ox.contiguous(), gate.contiguous()
+
+
+def kernel_inputs(gen, side: int, stride: int, dtype, batch: int, Cout: int = 256):
+    """Product map, offsets and gate (`offset_inputs`) and a cotangent."""
+    Ho = (side + stride - 1) // stride
+    h = torch.randn(batch, side, side, K * Cout, device="cuda", generator=gen).to(dtype)
+    oy, ox, gate = offset_inputs(gen, batch, Ho)
     ct = torch.randn(batch, Ho, Ho, Cout, device="cuda", generator=gen)
-    return h.contiguous(), oy.contiguous(), ox.contiguous(), gate.contiguous(), ct
+    return h.contiguous(), oy, ox, gate, ct
 
 
-def _record(name, source_line):
-    return {"name": name, "route": "cuda", "source": "lpi_tpu_torch/csrc/deform_window.cu",
-            "replaces": f"lpi_tpu/ops/deform_window_kernel.py:{source_line}",
+def _record(name, replaces, source="lpi_tpu_torch/csrc/deform_window.cu"):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
             "library_ms": None, "bound_kinds": set()}
 
@@ -261,6 +291,113 @@ def check_backward_kernels(dk, gen, records):
                     rec["bound_kinds"].add(kind)
 
 
+def fused_inputs(gen, side: int, stride: int, batch: int, C: int):
+    """Features, offsets and gate (`offset_inputs`), weights and a
+    cotangent, fp32, Cout = C."""
+    Ho = (side + stride - 1) // stride
+    f = torch.randn(batch, side, side, C, device="cuda", generator=gen)
+    oy, ox, gate = offset_inputs(gen, batch, Ho)
+    w = torch.randn(K, C, C, device="cuda", generator=gen) / np.sqrt(K * C)
+    ct = torch.randn(batch, Ho, Ho, C, device="cuda", generator=gen)
+    return f, oy, ox, gate, w, ct
+
+
+def fused_bound_ms(f, oy, C, Cout, backward=False, dw=False):
+    """Least time of the fused conv: bytes (features, offsets, gate and W
+    read once, the output written once; for the VJP also the cotangent read
+    and d feats, d offsets, d gate (and d W) written) over the HBM rate vs
+    the fp32 operations (2 K C Cout per output pixel for each product, 8 K C
+    for each bilinear pass: 4 corners, a multiply and an add) over the fp32
+    rate."""
+    B, _, Ho, Wo = oy.shape
+    P = B * Ho * Wo
+    w_bytes = K * C * Cout * 4
+    nbytes = f.numel() * 4 + 3 * oy.numel() * 4 + w_bytes + P * Cout * 4
+    flops = P * (2 * K * C * Cout + 8 * K * C)
+    if backward:  # U = ct W^T, then the d f gather and the offset sums
+        nbytes += f.numel() * 4 + 3 * oy.numel() * 4
+        flops = P * (2 * K * C * Cout + 16 * K * C)
+        if dw:  # re-sample and samp^T ct
+            nbytes += w_bytes
+            flops += P * (2 * K * C * Cout + 8 * K * C)
+    return _bound(nbytes, flops)
+
+
+def _held(name, got, want):
+    """Max abs error of `got` against the plain `want`, held to 1e-5 x
+    max(1, max |plain|)."""
+    err = (got - want).abs().max().item()
+    scale = max(1.0, want.abs().max().item())
+    if not (err <= REL_TOL * scale and torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: max abs err {err} > {REL_TOL} x {scale}")
+    return err
+
+
+def check_fused_kernels(fk, gen, records):
+    """Phase 2c: the fused forward and backward kernels against their plain
+    versions, fp32, at the 448 px predictor's (batch 1) and train step's
+    (batch 4) shapes, 256 channels, and at the gate's (batch 4, 16
+    channels, 64 px). The records sum the 448 px train step's launches (the
+    backward without d W: the continual step's head is frozen);
+    `predict_ms` the predictor's forward; `dw_ms` the backward with d W."""
+    fwd, bwd = records["fused_deform"], records["fused_deform_backward"]
+    fwd["predict_ms"] = 0.0
+    bwd["dw_ms"] = 0.0
+    configs = (("448px", 256, TOWERS, (PREDICT_BATCH, TRAIN_BATCH), INPAD_SHAPES, S2_SHAPES),
+               ("gate", GATE_CHANNELS, GATE_TOWERS, (TRAIN_BATCH,), GATE_S1_SHAPES,
+                GATE_S2_SHAPES))
+    for label, C, towers, batches, s1, s2 in configs:
+        for batch in batches:
+            for stride, shapes in ((1, s1), (2, s2)):
+                for side, per_tower in shapes.items():
+                    f, oy, ox, g, w, ct = fused_inputs(gen, side, stride, batch, C)
+                    args = (f, oy, ox, g, w, M, KW, stride)
+                    err = _held(f"fused_deform {label} b{batch} {side} s{stride}",
+                                fk.fused_deform(*args), fk.fused_deform_reference(*args))
+                    fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
+                    want = fk.fused_deform_backward_reference(f, oy, ox, g, w, ct, M, KW,
+                                                              stride)
+                    errs = []
+                    for need_dw in (False, True):
+                        got = fk.fused_deform_backward(f, oy, ox, g, w, ct, M, KW, stride,
+                                                       need_dw=need_dw)
+                        if (got[4] is None) == need_dw:
+                            raise AssertionError("fused_deform_backward: d W presence")
+                        for what, a, b in zip(("df", "doy", "dox", "dgate", "dw"), got, want):
+                            if a is not None:
+                                errs.append(_held(f"fused_deform_backward {label} b{batch} "
+                                                  f"{side} s{stride} {what}", a, b))
+                    bwd["max_abs_err"] = max(bwd["max_abs_err"], *errs)
+                    bargs = (f, oy, ox, g, w, ct, M, KW, stride)
+                    ms = device_time_ms(lambda: fk.fused_deform(*args))
+                    plain = device_time_ms(lambda: fk.fused_deform_reference(*args))
+                    bms = device_time_ms(lambda: fk.fused_deform_backward(*bargs, need_dw=False))
+                    bdw = device_time_ms(lambda: fk.fused_deform_backward(*bargs))
+                    bplain = device_time_ms(
+                        lambda: fk.fused_deform_backward_reference(*bargs, need_dw=False))
+                    fb, fkind = fused_bound_ms(f, oy, C, C)
+                    bb, bkind = fused_bound_ms(f, oy, C, C, backward=True)
+                    bbdw, _ = fused_bound_ms(f, oy, C, C, backward=True, dw=True)
+                    log(f"kernel fused_deform {label} b{batch} in {side}x{side}x{C} stride "
+                        f"{stride}: {ms:.6f} ms, plain {plain:.6f} ms, bound {fb:.6f} ms "
+                        f"({fkind}), max abs err {err:.3e}; backward {bms:.6f} ms (with d W "
+                        f"{bdw:.6f} ms), plain {bplain:.6f} ms, bound {bb:.6f} ms ({bkind}; "
+                        f"with d W {bbdw:.6f} ms), max abs err {max(errs):.3e}")
+                    if label != "448px":
+                        continue
+                    n = per_tower * towers
+                    if batch == PREDICT_BATCH:
+                        fwd["predict_ms"] += n * ms
+                        continue
+                    for rec, t, p, b, kind in ((fwd, ms, plain, fb, fkind),
+                                               (bwd, bms, bplain, bb, bkind)):
+                        rec["ms"] += n * t
+                        rec["plain_ms"] += n * p
+                        rec["bound_ms"] += n * b
+                        rec["bound_kinds"].add(kind)
+                    bwd["dw_ms"] += n * bdw
+
+
 def _profile(run, what):
     """`run()` under torch.profiler: wall time, the device's busy time (the
     sum of its kernels' times), the host ranges and the kernels that take
@@ -302,6 +439,19 @@ def deform_kernel_times(kernels):
     return out
 
 
+def fused_kernel_times(kernels):
+    """Device ms and launches of the fused deform kernels among profiled
+    events, by kernel name."""
+    out = {}
+    for e in kernels:
+        m = re.search(r"(fused_fwd_kernel|u_product_kernel|fused_bwd_sample_kernel|"
+                      r"dw_partial_kernel|dw_sum_kernel)", e.key)
+        if m:
+            n, ms = out.get(m.group(1), (0, 0.0))
+            out[m.group(1)] = (n + e.count, ms + e.self_device_time_total / 1e3)
+    return out
+
+
 def assert_close(ours, theirs, what, rel=1e-4, atol=3e-3, where="card vs cpu"):
     """The repo's composed-output bar: relative Frobenius error <= rel plus
     an absolute per-element cap."""
@@ -331,17 +481,52 @@ def realistic_offsets(model):
                 p.copy_(torch.from_numpy(bias))
 
 
-def train_phase(dk, cfg, tok, records):
-    """Phase 5: the full-width train step, batch 4, 448 px, bf16, task 1.
-    -> the batch."""
+def launch_counts(dk, fk) -> dict:
+    """Every kernel wrapper's launch counter, and the fused backward's calls
+    that computed d W."""
+    out = {fn.__name__: fn.launches for fn in (*dk.KERNELS, *fk.KERNELS)}
+    out["fused_deform_backward.dw"] = fk.fused_deform_backward.dw_launches
+    return out
+
+
+def reset_counts(dk, fk) -> None:
+    dk.reset_launch_counts()
+    fk.reset_launch_counts()
+
+
+def expected_counts(dk, fk, cfg, n: int, train: bool) -> dict:
+    """Launches of `n` forwards (and, when `train`, their backwards) of the
+    head: per tower conv_same at every level and conv_up at all but the last
+    run at stride 1, conv_down at all but the first at stride 2 (54 and 24
+    at 448 px, six towers); the fused route takes both strides through one
+    entry (78) and never computes d W (the head is frozen)."""
+    levels, towers = len(cfg.atss.anchor_strides), cfg.dyhead.num_convs
+    s1, s2 = towers * (2 * levels - 1) * n, towers * (levels - 1) * n
+    want = dict.fromkeys(launch_counts(dk, fk), 0)
+    if cfg.dyhead.deform_impl == "fused":
+        want["fused_deform"] = s1 + s2
+        want["fused_deform_backward"] = (s1 + s2) if train else 0
+    else:
+        want["window_accumulate_taps_inpad"] = s1
+        want["window_accumulate_taps_s2"] = s2
+        if train:
+            want["window_accumulate_taps_inpad_backward"] = s1
+            want["window_accumulate_taps_s2_backward"] = s2
+    return want
+
+
+def train_phase(dk, fk, cfg, tok, records):
+    """Phases 5 and 5b: the full-width train step, batch 4, 448 px, bf16,
+    task 1, on the route `cfg.dyhead.deform_impl` names. -> the batch."""
     from lpi_tpu_torch.continual.grounding_learner import GroundingLearner
     from lpi_tpu_torch.data.grounding import synthetic_grounding_task
 
+    route = cfg.dyhead.deform_impl
     t = time.perf_counter()
     learner = GroundingLearner(cfg, generator=torch.Generator().manual_seed(0), device="cuda")
     realistic_offsets(learner.model)
-    log(f"train: learner built in {time.perf_counter() - t:.3f} s; offset convs scaled "
-        f"(kernel x30, bias[:18] ~ N(0, 1)) for realistic offsets")
+    log(f"train {route}: learner built in {time.perf_counter() - t:.3f} s; offset convs "
+        f"scaled (kernel x30, bias[:18] ~ N(0, 1)) for realistic offsets")
     ds = synthetic_grounding_task(TRAIN_TASK, TRAIN_BATCH, cfg.image_size, tok,
                                   max_boxes=cfg.max_boxes)
     batch = next(ds.batches(TRAIN_BATCH))
@@ -353,7 +538,7 @@ def train_phase(dk, cfg, tok, records):
     n_steps = 10
     for i in range(1 + n_steps):
         if i == 1:
-            dk.reset_launch_counts()
+            reset_counts(dk, fk)
         t = time.perf_counter()
         metrics = step(batch)
         torch.cuda.synchronize()
@@ -362,29 +547,23 @@ def train_phase(dk, cfg, tok, records):
         for k, v in metrics.items():
             if not np.isfinite(v.item()):
                 raise AssertionError(f"train step {i}: {k} = {v.item()}")
-    launches = {fn.__name__: fn.launches for fn in dk.KERNELS}
+    launches = launch_counts(dk, fk)
     peak = torch.cuda.max_memory_allocated()
-    # per tower: conv_same at every level and conv_up at all but the last
-    # (stride 1), conv_down at all but the first (stride 2); each backward
-    # kernel once per forward launch: 54 / 24 / 54 / 24 at six towers
-    levels, towers = len(cfg.atss.anchor_strides), cfg.dyhead.num_convs
-    s1, s2 = towers * (2 * levels - 1) * n_steps, towers * (levels - 1) * n_steps
-    want = {"window_accumulate_taps_inpad": s1, "window_accumulate_taps_s2": s2,
-            "window_accumulate_taps_inpad_backward": s1,
-            "window_accumulate_taps_s2_backward": s2}
-    log(f"train: {n_steps} steps, launches {launches}")
+    want = expected_counts(dk, fk, cfg, n_steps, train=True)
+    log(f"train {route}: {n_steps} steps, launches {launches}")
     if launches != want:
         raise AssertionError(f"want {want} launches, got {launches}")
     for name, n in launches.items():
-        records[name]["launches"] = n
+        if name in records and n:
+            records[name]["launches"] = n
     med = statistics.median(times[1:])
-    log(f"train step on {card_line()}: median {med:.3f} ms over {n_steps} steps after the "
-        f"first ({times[0]:.3f} ms), {1e3 * TRAIN_BATCH / med:.3f} samples/s, all "
+    log(f"train step {route} on {card_line()}: median {med:.3f} ms over {n_steps} steps "
+        f"after the first ({times[0]:.3f} ms), {1e3 * TRAIN_BATCH / med:.3f} samples/s, all "
         f"{[round(x, 3) for x in times]}")
-    log(f"train: total loss first {totals[0]:.6f}, last {totals[-1]:.6f}; "
+    log(f"train {route}: total loss first {totals[0]:.6f}, last {totals[-1]:.6f}; "
         f"num_pos {metrics['num_pos'].item():.0f}; "
         + ", ".join(f"{k} {v.item():.6f}" for k, v in metrics.items()))
-    log(f"train: peak device memory {peak / 2**30:.3f} GiB (max_memory_allocated)")
+    log(f"train {route}: peak device memory {peak / 2**30:.3f} GiB (max_memory_allocated)")
 
     changed = 0
     for name, p in learner.model.named_parameters():
@@ -398,23 +577,29 @@ def train_phase(dk, cfg, tok, records):
             raise AssertionError(f"frozen parameter {name} moved")
     if changed == 0:
         raise AssertionError(f"no pool row of task {TRAIN_TASK} moved")
-    log(f"train: frozen parameters and the other tasks' pool rows bit-identical; "
+    log(f"train {route}: frozen parameters and the other tasks' pool rows bit-identical; "
         f"{changed} of {len(learner.pools)} pool leaves moved their task-{TRAIN_TASK} row")
     del before
 
-    kernels = _profile(lambda: step(batch), "train step")
-    names = {(1, False): "window_accumulate_taps_inpad", (2, False): "window_accumulate_taps_s2",
-             (1, True): "window_accumulate_taps_inpad_backward",
-             (2, True): "window_accumulate_taps_s2_backward"}
-    for key, (n, ms) in sorted(deform_kernel_times(kernels).items()):
-        log(f"profile deform kernel {names[key]}: {ms:.3f} ms device in one step, x{n}")
+    kernels = _profile(lambda: step(batch), f"train step ({route})")
+    log_deform_kernels(kernels)
     del learner, step
     torch.cuda.empty_cache()
     return batch
 
 
+def log_deform_kernels(kernels):
+    names = {(1, False): "window_accumulate_taps_inpad", (2, False): "window_accumulate_taps_s2",
+             (1, True): "window_accumulate_taps_inpad_backward",
+             (2, True): "window_accumulate_taps_s2_backward"}
+    for key, (n, ms) in sorted(deform_kernel_times(kernels).items()):
+        log(f"profile deform kernel {names[key]}: {ms:.3f} ms device, x{n}")
+    for name, (n, ms) in sorted(fused_kernel_times(kernels).items()):
+        log(f"profile fused deform kernel {name}: {ms:.3f} ms device, x{n}")
+
+
 def gradient_phase(cfg, batch):
-    """Phase 6: one fp32 `_losses` at task 1 and the gradient of the task-1
+    """Phase 6 (and 5b's): one fp32 `_losses` at task 1 and the gradient of the task-1
     rows of the pools, at batch 1, on the card and on the CPU (plain
     versions), from the same seeded weights: each loss term and the
     concatenated gradient within the repo's bar, relative Frobenius 1e-4.
@@ -437,7 +622,8 @@ def gradient_phase(cfg, batch):
             grads = torch.autograd.grad(total, [learner.pools[n] for n in names])
         out[device] = ({k: v.item() for k, v in metrics.items()} | {"total": total.item()},
                        {n: g[TRAIN_TASK].double().cpu().numpy() for n, g in zip(names, grads)})
-        log(f"fp32 losses + backward on {device}: {time.perf_counter() - t:.3f} s")
+        log(f"fp32 losses + backward ({cfg.dyhead.deform_impl}) on {device}: "
+            f"{time.perf_counter() - t:.3f} s")
         del learner, grads
     (m_gpu, g_gpu), (m_cpu, g_cpu) = out["cuda"], out["cpu"]
     if m_gpu["num_pos"] != m_cpu["num_pos"]:
@@ -457,17 +643,114 @@ def gradient_phase(cfg, batch):
                  f"task-{TRAIN_TASK} pool gradient", atol=np.inf)
 
 
+def predict_phase(dk, fk, model, keys, tok, cfg, image, caption, n_req=11):
+    """Phases 3 and 3b: `n_req` requests to a bf16 predictor of `model` on
+    the card, launch counters checked, one request profiled. -> predictor."""
+    from lpi_tpu_torch.serve.predictor import GroundingPredictor
+
+    route = cfg.dyhead.deform_impl
+    # random weights score every box near the 0.01 prior: drop the pre-NMS
+    # threshold so that all candidates reach NMS and the reply is not empty
+    atss = dataclasses.replace(cfg.atss, inference_thresh=0.0)
+    predictor = GroundingPredictor(model, keys, tok, image_size=cfg.image_size,
+                                   score_thresh=0.0, atss_cfg=atss, device="cuda")
+    predictor.predict(image, caption)  # the first request, outside the counts
+    reset_counts(dk, fk)
+    lat = []
+    for _ in range(n_req):
+        t = time.perf_counter()
+        result = predictor.predict(image, caption)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    launches = launch_counts(dk, fk)
+    log(f"predict {route}: {n_req} requests, launches {launches}")
+    want = expected_counts(dk, fk, cfg, n_req, train=False)
+    if launches != want:
+        raise AssertionError(f"want {want} launches, got {launches}")
+    boxes, scores = result["boxes"], result["scores"]
+    if not (boxes.ndim == 2 and boxes.shape[1] == 4 and len(boxes) == len(scores)
+            == len(result["entities"]) and len(boxes) > 0
+            and np.isfinite(boxes).all() and np.isfinite(scores).all()
+            and 0 <= result["task_id"] < cfg.total_tasks):
+        raise AssertionError(f"bad predict output: {result}")
+    log(f"predict {route}: entities {sorted(set(result['entities']))}, {len(boxes)} boxes, "
+        f"top score {float(scores.max()):.4f}, task_id {result['task_id']}")
+    log(f"predict latency {route} on {card_line()}: median {statistics.median(lat):.3f} ms "
+        f"over {n_req} requests after the first, all {[round(x, 3) for x in lat]}")
+    log_deform_kernels(_profile(lambda: predictor.predict(image, caption),
+                                f"request ({route})"))
+    return predictor, launches
+
+
+def fp32_heads(model, cfg32, keys, canvas, ids, mask, device):
+    """The fp32 copy of `model` on `device`: task id and head outputs of one
+    image, TF32 off."""
+    from lpi_tpu_torch.continual.keys import exact_fp32, infer_task_ids
+    from lpi_tpu_torch.models.glip.grounding import GroundedVLModel
+
+    m32 = GroundedVLModel(cfg32)
+    m32.load_state_dict(model.state_dict())
+    m32 = m32.to(device).eval()
+    t = time.perf_counter()
+    with torch.no_grad(), exact_fp32():
+        images = torch.from_numpy(canvas).to(device)
+        sel = infer_task_ids(m32.extract_features(images), keys.to(device))
+        flat, _ = m32.forward_tasks(images, torch.from_numpy(ids).long().to(device),
+                                    torch.from_numpy(mask).to(device), sel)
+    out = {k: flat[k].float().cpu().numpy() for k in ("dot_logits", "bbox_pred", "centerness")}
+    out["task_id"] = int(sel[0])
+    log(f"fp32 forward ({cfg32.dyhead.deform_impl}) on {device}: "
+        f"{time.perf_counter() - t:.3f} s, task_id {out['task_id']}")
+    for k in ("dot_logits", "bbox_pred", "centerness"):
+        if not np.isfinite(out[k]).all():
+            raise AssertionError(f"fp32 {k} not finite on {device}")
+    return out
+
+
+def compare_heads(ours, theirs, where):
+    for k in ("dot_logits", "bbox_pred", "centerness"):
+        assert_close(ours[k], theirs[k], k, where=where)
+    if ours["task_id"] != theirs["task_id"]:
+        raise AssertionError(f"task_id differs ({where})")
+
+
+def gate_phase(dk, fk):
+    """Phase 7: the quality gate's run with its own config ("pallas": the
+    window kernels at Cout = 16) and with the fused route (whose full-
+    parameter pretrain runs the d W path), each held to the gate's bars."""
+    from lpi_tpu_torch.bench import QUALITY_BARS, bench_quality_grounding, quality_ok
+
+    for route in ("pallas", "fused"):
+        reset_counts(dk, fk)
+        t = time.perf_counter()
+        out = bench_quality_grounding(device="cuda", deform_impl=route)
+        secs = time.perf_counter() - t
+        launches = {k: v for k, v in launch_counts(dk, fk).items() if v}
+        log(f"gate {route} on {card_line()}: P@1 {out['grounding_p1']}, P@5 "
+            f"{out['grounding_p5']}, task-ID accuracy {out['grounding_task_id_acc']}, "
+            f"forgetting {out['grounding_forgetting']} in {secs:.3f} s; launches {launches}")
+        used = ({"fused_deform", "fused_deform_backward", "fused_deform_backward.dw"}
+                if route == "fused" else {"window_accumulate_taps_inpad",
+                                          "window_accumulate_taps_s2",
+                                          "window_accumulate_taps_inpad_backward",
+                                          "window_accumulate_taps_s2_backward"})
+        if set(launches) != used:
+            raise AssertionError(f"gate {route}: launches {launches}, want {sorted(used)}")
+        if not quality_ok(out):
+            raise AssertionError(f"gate {route}: {out} misses the bars {QUALITY_BARS}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from lpi_tpu_torch.config import GroundingConfig
-    from lpi_tpu_torch.continual.keys import TaskKeys, exact_fp32, infer_task_ids
+    from lpi_tpu_torch.continual.keys import TaskKeys
     from lpi_tpu_torch.data.bert_tokenizer import BertTokenizer
     from lpi_tpu_torch.models.glip.grounding import GroundedVLModel, init_parameters
     from lpi_tpu_torch.ops import cuda_build
     from lpi_tpu_torch.ops import deform_window_kernel as dk
-    from lpi_tpu_torch.serve.predictor import GroundingPredictor
+    from lpi_tpu_torch.ops import fused_deform_kernel as fk
 
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, cuda {torch.version.cuda}")
@@ -475,101 +758,76 @@ def main() -> int:
     cuda_build.build()
     log(f"build: {time.perf_counter() - t0:.3f} s")
 
-    records = {name: _record(name, line) for name, line in (
-        ("window_accumulate_taps_inpad", 534), ("window_accumulate_taps_s2", 766),
-        ("window_accumulate_taps_inpad_backward", 597),
-        ("window_accumulate_taps_s2_backward", 823))}
+    window = "lpi_tpu/ops/deform_window_kernel.py"
+    fused = "lpi_tpu/ops/fused_deform_kernel.py"
+    fused_src = "lpi_tpu_torch/csrc/fused_deform.cu"
+    records = {name: _record(name, replaces, *src) for name, replaces, *src in (
+        ("window_accumulate_taps_inpad", f"{window}:534"),
+        ("window_accumulate_taps_s2", f"{window}:766"),
+        ("window_accumulate_taps_inpad_backward", f"{window}:597"),
+        ("window_accumulate_taps_s2_backward", f"{window}:823"),
+        ("fused_deform", f"{fused}:181", fused_src),
+        ("fused_deform_backward", f"{fused}:225", fused_src))}
+    records["fused_deform"]["pallas_call"] = f"{fused}:201"
+    records["fused_deform_backward"]["pallas_call"] = f"{fused}:238"
     gen = torch.Generator(device="cuda").manual_seed(0)
     check_forward_kernels(dk, gen, records)
     check_backward_kernels(dk, gen, records)
-    log(f"phases 1-2b: {time.perf_counter() - t0:.3f} s")
+    t = time.perf_counter()
+    check_fused_kernels(fk, gen, records)
+    log(f"phase 2c: {time.perf_counter() - t:.3f} s; phases 1-2c: "
+        f"{time.perf_counter() - t0:.3f} s")
 
     # ---- the full-width predictor: GLIP-T + LPI at 448 px, bf16 ---------
+    t = time.perf_counter()
     cfg = GroundingConfig(batch_size=TRAIN_BATCH)
+    cfg_fused = dataclasses.replace(cfg, dyhead=dataclasses.replace(cfg.dyhead,
+                                                                    deform_impl="fused"))
     model = GroundedVLModel(cfg)
     init_parameters(model, torch.Generator().manual_seed(0))
     rng = np.random.RandomState(0)
     feat_dim = cfg.dyhead.channels * 4 * 4  # P7 at 448 px
     centers = (rng.randn(cfg.total_tasks, cfg.num_key_clusters, feat_dim)
                / np.sqrt(feat_dim)).astype(np.float32)
-    keys = TaskKeys(torch.from_numpy(centers),
-                    torch.ones(cfg.total_tasks, dtype=torch.bool))
+    keys = TaskKeys(torch.from_numpy(centers), torch.ones(cfg.total_tasks, dtype=torch.bool))
     tok = BertTokenizer(max_len=cfg.bert.max_query_len, vocab_size=cfg.bert.vocab_size)
-    # random weights score every box near the 0.01 prior: drop the pre-NMS
-    # threshold so that all candidates reach NMS and the reply is not empty
-    atss = dataclasses.replace(cfg.atss, inference_thresh=0.0)
-    predictor = GroundingPredictor(model, keys, tok, image_size=cfg.image_size,
-                                   score_thresh=0.0, atss_cfg=atss, device="cuda")
     image = rng.randint(0, 256, size=(480, 640, 3)).astype(np.uint8)
     caption = "a red car parked next to a tall tree and a small dog"
-
-    n_req = 11
-    dk.reset_launch_counts()
-    lat = []
-    for _ in range(n_req):
-        t = time.perf_counter()
-        result = predictor.predict(image, caption)
-        torch.cuda.synchronize()
-        lat.append((time.perf_counter() - t) * 1e3)
-    launches = {fn.__name__: fn.launches for fn in dk.KERNELS}
-    log(f"predict: {n_req} requests, launches {launches}")
-    if launches != {"window_accumulate_taps_inpad": 54 * n_req,
-                    "window_accumulate_taps_s2": 24 * n_req,
-                    "window_accumulate_taps_inpad_backward": 0,
-                    "window_accumulate_taps_s2_backward": 0}:
-        raise AssertionError(f"want 54 and 24 launches per forward, got {launches}")
+    predictor, launches = predict_phase(dk, fk, model, keys, tok, cfg, image, caption)
     for name in ("window_accumulate_taps_inpad", "window_accumulate_taps_s2"):
         records[name]["predict_launches"] = launches[name]
-    boxes, scores = result["boxes"], result["scores"]
-    if not (boxes.ndim == 2 and boxes.shape[1] == 4 and len(boxes) == len(scores)
-            == len(result["entities"]) and len(boxes) > 0
-            and np.isfinite(boxes).all() and np.isfinite(scores).all()
-            and 0 <= result["task_id"] < cfg.total_tasks):
-        raise AssertionError(f"bad predict output: {result}")
-    log(f"predict: entities {sorted(set(result['entities']))}, {len(boxes)} boxes, "
-        f"top score {float(scores.max()):.4f}, task_id {result['task_id']}")
-    log(f"predict latency on {card}: median {statistics.median(lat[1:]):.3f} ms over "
-        f"{n_req - 1} requests after the first ({lat[0]:.3f} ms), all "
-        f"{[round(x, 3) for x in lat]}")
+    model_fused = GroundedVLModel(cfg_fused)
+    model_fused.load_state_dict(model.state_dict())
+    _, launches = predict_phase(dk, fk, model_fused, keys, tok, cfg_fused, image, caption)
+    records["fused_deform"]["predict_launches"] = launches["fused_deform"]
+    log(f"phases 3, 3b: {time.perf_counter() - t:.3f} s")
 
-    _profile(lambda: predictor.predict(image, caption), "request")
-
-    # ---- fp32: the card against the CPU's plain versions ----------------
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    # ---- fp32: the card against the CPU, and fused against "pallas" -----
+    t = time.perf_counter()
     canvas, _ = predictor._prepare_image(image)
     ids, mask, _ = tok([caption])
-    outs = {}
-    for device in ("cuda", "cpu"):
-        m32 = GroundedVLModel(cfg32)
-        m32.load_state_dict(model.state_dict())
-        m32 = m32.to(device).eval()
-        t = time.perf_counter()
-        with torch.no_grad(), exact_fp32():
-            images = torch.from_numpy(canvas).to(device)
-            sel = infer_task_ids(m32.extract_features(images), keys.to(device))
-            flat, _ = m32.forward_tasks(images, torch.from_numpy(ids).long().to(device),
-                                        torch.from_numpy(mask).to(device), sel)
-        outs[device] = {k: flat[k].float().cpu().numpy()
-                        for k in ("dot_logits", "bbox_pred", "centerness")}
-        outs[device]["task_id"] = int(sel[0])
-        log(f"fp32 forward on {device}: {time.perf_counter() - t:.3f} s, "
-            f"task_id {outs[device]['task_id']}")
-    for k in ("dot_logits", "bbox_pred", "centerness"):
-        if not np.isfinite(outs["cuda"][k]).all():
-            raise AssertionError(f"fp32 {k} not finite on the card")
-        assert_close(outs["cuda"][k], outs["cpu"][k], k)
-    if outs["cuda"]["task_id"] != outs["cpu"]["task_id"]:
-        raise AssertionError("task_id differs between card and cpu")
-    del predictor, model, m32
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cfg32_fused = dataclasses.replace(cfg_fused, dtype="float32")
+    card_pallas = fp32_heads(model, cfg32, keys, canvas, ids, mask, "cuda")
+    compare_heads(card_pallas, fp32_heads(model, cfg32, keys, canvas, ids, mask, "cpu"),
+                  "card vs cpu")
+    compare_heads(fp32_heads(model, cfg32_fused, keys, canvas, ids, mask, "cuda"),
+                  card_pallas, "fused vs pallas, card")
+    del predictor, model, model_fused
     torch.cuda.empty_cache()
+    log(f"phases 4, 3b fp32: {time.perf_counter() - t:.3f} s")
 
-    # ---- the full-width train step, then its fp32 gradient --------------
+    # ---- the full-width train steps, then their fp32 gradients ----------
+    for c in (cfg, cfg_fused):
+        t = time.perf_counter()
+        batch = train_phase(dk, fk, c, tok, records)
+        gradient_phase(c, batch)
+        log(f"phases 5-6 ({c.dyhead.deform_impl}): {time.perf_counter() - t:.3f} s")
+
+    # ---- the quality gate ------------------------------------------------
     t = time.perf_counter()
-    batch = train_phase(dk, cfg, tok, records)
-    log(f"phase 5: {time.perf_counter() - t:.3f} s")
-    t = time.perf_counter()
-    gradient_phase(cfg, batch)
-    log(f"phase 6: {time.perf_counter() - t:.3f} s")
+    gate_phase(dk, fk)
+    log(f"phase 7: {time.perf_counter() - t:.3f} s")
 
     for rec in records.values():
         kinds = rec.pop("bound_kinds")

@@ -9,7 +9,9 @@
   `encoder.blocks.{i}` / `encoder.layers.{i}`, i = stage offset + 2p + j;
 * Flax HWIO conv kernels become OIHW weights, Dense [in, out] kernels
   become Linear [out, in] weights;
-* LayerNorm / GroupNorm `scale` becomes `weight`;
+* LayerNorm / GroupNorm `scale` becomes `weight`; the GroupNorm FPN's
+  `{inner,layer}{i}_gn` (siblings of the convs in Flax, though built inside
+  an `nn.Sequential`) become the `gn` of conv i;
 * the prompt and interaction pools and the head's scalars are copied as
   they are.
 
@@ -31,6 +33,7 @@ _RENAMES = (
     (re.compile(r"^encoder/swin/downsample(\d+)/"), r"encoder/swin/downsamples/\1/"),
     (re.compile(r"^encoder/swin/out_norm(\d+)/"), r"encoder/swin/out_norms/\1/"),
     (re.compile(r"^fpn/(inner|layer)(\d+)_conv/"), r"fpn/\1/\2/"),
+    (re.compile(r"^fpn/(inner|layer)(\d+)_gn/"), r"fpn/\1/\2/gn/"),
     (re.compile(r"^head/tower(\d+)/"), r"head/towers/\1/"),
 )
 _STAGE = re.compile(r"^encoder/stage(\d+)/(vblock|tlayer)(\d)/(.*)$")

@@ -14,7 +14,10 @@ tasks' rows, and `clip_grad_norm_` adds 1e-6 to the norm. The frozen
 parameters have requires_grad=False, so autograd computes gradients for the
 pools alone, as JAX differentiates with respect to them alone.
 
-`evaluate` (RefExp P@k over the seen tasks) is not ported yet.
+`evaluate` infers each eval image's task from the frozen P7 features and
+the task keys, runs the eval forward with that task's prompts, postprocesses
+the boxes of the first entity and scores RefExp P@1/5/10 (GIoU >= 0.5) per
+task, with the task-ID accuracy beside it.
 """
 
 from __future__ import annotations
@@ -30,11 +33,13 @@ import torch
 
 from lpi_tpu_torch.config import GroundingConfig
 from lpi_tpu_torch.continual.common import freeze
-from lpi_tpu_torch.continual.keys import TaskKeys, exact_fp32
+from lpi_tpu_torch.continual.keys import TaskKeys, exact_fp32, infer_task_ids
 from lpi_tpu_torch.data.grounding import GroundingTaskSet
+from lpi_tpu_torch.eval.refexp import RefExpEvaluator
 from lpi_tpu_torch.models.glip.atss import atss_losses
 from lpi_tpu_torch.models.glip.grounding import (GroundedVLModel, grounding_aux_losses,
                                                  init_parameters)
+from lpi_tpu_torch.models.glip.postprocess import atss_postprocess_batch
 from lpi_tpu_torch.ops.kmeans import kmeans
 
 POOL_KEYS = ("prompts", "interact")
@@ -247,3 +252,41 @@ class GroundingLearner:
                                         feats.shape[-1], device=self.device)
         centers, _ = kmeans(feats, torch.Generator().manual_seed(0), k=cfg.num_key_clusters)
         self.keys = self.keys.update(dataset.task_index, centers)
+
+    def evaluate(self, task_sets: Mapping[int, GroundingTaskSet],
+                 batch_size: Optional[int] = None) -> dict:
+        """RefExp over the seen tasks' sets, each image's task inferred from
+        the task keys. -> {'per_task': {t: [P@1, P@5, P@10]}, 'overall':
+        [...] (percent), 'task_id_accuracy': fraction}."""
+        cfg = self.cfg
+        bs = batch_size or cfg.batch_size
+        evaluator = RefExpEvaluator()
+        hits = total = 0
+        for tid, ds in task_sets.items():
+            for batch, real, indices in ds.eval_batches(bs):
+                sel = infer_task_ids(self.extract_features(batch["images"]), self.keys)
+                hits += int((sel[:real] == tid).sum())
+                total += real
+                b = self.to_device(batch)
+                with torch.no_grad():
+                    flat, _ = self.model.forward_tasks(b["images"], b["input_ids"],
+                                                       b["attention_mask"], sel)
+                    A = flat["anchors"].shape[0]
+                    out = atss_postprocess_batch(
+                        flat["anchors"], tuple(int(c) for c in flat["level_counts"]),
+                        flat["bbox_pred"], flat["centerness"], flat["dot_logits"],
+                        b["positive_map"][:, :1],  # the first entity [B, 1, T]
+                        pre_nms_top_n=min(cfg.atss.pre_nms_top_n, A),
+                        post_nms_top_n=min(cfg.atss.fpn_post_nms_top_n, A),
+                        nms_thresh=cfg.atss.nms_thresh,
+                        pre_nms_thresh=cfg.atss.inference_thresh)
+                out = {k: v.cpu().numpy() for k, v in out.items()}
+                for i in range(real):
+                    valid = out["valid"][i]
+                    evaluator.update(image_index=indices[i], boxes=out["boxes"][i][valid],
+                                     scores=out["scores"][i][valid],
+                                     gt_box=batch["gt_boxes"][i][batch["gt_valid"][i]][0],
+                                     task_index=tid)
+        res = evaluator.summarize(num_tasks=max(task_sets) + 1)
+        res["task_id_accuracy"] = hits / max(total, 1)
+        return res

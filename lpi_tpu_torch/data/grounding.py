@@ -1,5 +1,6 @@
 """Grounding task sets and the synthetic referring-expression fixture (host
-copy of the parts of `lpi_tpu/data/grounding.py` that the train step uses).
+copy of the parts of `lpi_tpu/data/grounding.py` that the train step and
+the evaluation use).
 
 Batches are static-shape numpy dicts: images as stored, GT boxes padded to
 `max_boxes` with a validity mask, text tokenized to `max_len` tokens with a
@@ -74,6 +75,18 @@ class GroundingTaskSet:
             if len(idx) < batch_size:
                 idx = np.concatenate([idx, order[:batch_size - len(idx)]])
             yield self._pack([self.examples[j] for j in idx])
+
+    def eval_batches(self, batch_size: int) -> Iterator[tuple]:
+        """Batches in order -> (batch, real, indices): the last batch is
+        filled by repeating its last example; `real` counts the examples
+        that are not repeats and `indices` are theirs."""
+        n = len(self)
+        for i in range(0, n, batch_size):
+            idx = list(range(i, min(i + batch_size, n)))
+            real = len(idx)
+            while len(idx) < batch_size:
+                idx.append(idx[-1])
+            yield self._pack([self.examples[j] for j in idx]), real, idx[:real]
 
     @classmethod
     def concat(cls, sets: Sequence["GroundingTaskSet"]) -> "GroundingTaskSet":

@@ -2,6 +2,11 @@
 `lpi_tpu/models/glip/fpn.py`): lateral 1x1, top-down nearest upsample, 3x3
 output convs, P6 = conv(P5), P7 = conv(relu(P6)), all NHWC.
 
+`use_gn=False` (the LPI configs): plain conv + bias. `use_gn=True` (the
+quality gate's config): the lateral and output convs have no bias and are
+followed by a GroupNorm in fp32 (32 groups where the width allows, else
+min(C, 8); Flax's epsilon 1e-6); P6 and P7 stay plain.
+
 `jax.image.resize(..., "nearest")` samples at half-pixel centres, which is
 `F.interpolate(mode="nearest-exact")`; plain `"nearest"` agrees with it only
 at exact 2x factors.
@@ -15,20 +20,37 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from lpi_tpu_torch.models.layers import Conv
+from lpi_tpu_torch.models.layers import Conv, GroupNorm
+
+
+class ConvGN(Conv):
+    """Conv without bias, then GroupNorm in fp32 (Flax's `nn.Sequential` of
+    `{name}_conv` and `{name}_gn`)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 compute_dtype: torch.dtype):
+        super().__init__(in_channels, out_channels, kernel_size, bias=False,
+                         compute_dtype=compute_dtype)
+        groups = 32 if out_channels % 32 == 0 else min(out_channels, 8)
+        self.gn = GroupNorm(groups, out_channels, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.gn(super().forward(x))
 
 
 class FPN(nn.Module):
-    """`use_gn=False` (the LPI configs): plain conv + bias everywhere."""
-
     def __init__(self, in_channels: Sequence[int], out_channels: int = 256,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_gn: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.inner = nn.ModuleList(Conv(c, out_channels, 1, compute_dtype=dtype)
-                                   for c in in_channels)
-        self.layer = nn.ModuleList(Conv(out_channels, out_channels, 3, compute_dtype=dtype)
-                                   for _ in in_channels)
+
+        def conv(cin, k):
+            if use_gn:
+                return ConvGN(cin, out_channels, k, compute_dtype=dtype)
+            return Conv(cin, out_channels, k, compute_dtype=dtype)
+
+        self.inner = nn.ModuleList(conv(c, 1) for c in in_channels)
+        self.layer = nn.ModuleList(conv(out_channels, 3) for _ in in_channels)
         self.p6 = Conv(out_channels, out_channels, 3, stride=2, compute_dtype=dtype)
         self.p7 = Conv(out_channels, out_channels, 3, stride=2, compute_dtype=dtype)
 

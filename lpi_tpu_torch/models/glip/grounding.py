@@ -7,8 +7,10 @@
                 -> ATSS losses (x0.8) + 0.1 x alignment + 0.1 x task loss
 
 The train `forward` (one task's prompts), `grounding_aux_losses`, the eval
-`forward_tasks` and `extract_features` are ported; `forward_knowledge` and
-the MaPLe / S-Prompts pools are not yet.
+`forward_tasks` and `extract_features` are ported, with both FPN variants
+(plain and GroupNorm) and both deformable-conv routes of the head
+(`deform_impl` "pallas" and "fused"); `forward_knowledge` and the MaPLe /
+S-Prompts pools are not yet.
 """
 
 from __future__ import annotations
@@ -40,10 +42,9 @@ class GroundedVLModel(nn.Module):
         if c.lpi.prompt_type not in ("lpi", "linear"):
             raise NotImplementedError(
                 f"grounding prompt_type {c.lpi.prompt_type!r} is not ported yet")
-        if c.fpn_use_gn:
-            raise NotImplementedError("the GroupNorm FPN variant is not ported yet")
         self.encoder = FusedDualEncoder(c.swin, c.bert, c.lpi, c.total_tasks, dtype)
-        self.fpn = FPN(self.encoder.swin.dims[-3:], c.dyhead.channels, dtype)
+        self.fpn = FPN(self.encoder.swin.dims[-3:], c.dyhead.channels, dtype,
+                       use_gn=c.fpn_use_gn)
         self.head = VLDyHead(c.dyhead, lang_dim=c.bert.hidden_size, num_anchors=1,
                              dtype=dtype)
         self.tunable_linear = (TunableLinear(c.bert.hidden_size)
@@ -131,17 +132,26 @@ def grounding_aux_losses(vis_p: torch.Tensor, txt_p: torch.Tensor,
 @torch.no_grad()
 def init_parameters(model: GroundedVLModel, generator: torch.Generator) -> None:
     """Seeded random parameters with the JAX package's initialisers:
-    Dense/Conv kernels lecun-normal, biases zero, norms one/zero, token and
-    position embeddings N(0, 0.02), relative-position tables N(0, 0.02),
-    prompt factors N(0, 0.5), interaction factors U(+-1/sqrt(rank)), the
-    head's convs N(0, 0.01) with the prior-probability bias on cls_logits
-    and bias0, and the zero-init tunable linear."""
+    Dense/Conv kernels lecun-normal (Flax's: a normal cut at +-2 standard
+    deviations, rescaled to variance 1/fan_in), biases zero, norms one/zero,
+    token and position embeddings N(0, 0.02), relative-position tables
+    N(0, 0.02) cut at +-2 (Flax's `truncated_normal`), prompt factors
+    N(0, 0.5), interaction factors U(+-1/sqrt(rank)), the head's convs
+    N(0, 0.01) with the prior-probability bias on cls_logits and bias0, and
+    the zero-init tunable linear."""
     c = model.cfg
     prior = VLDyHead.prior_bias(c.dyhead)
     bound = 1.0 / math.sqrt(c.lpi.interact_rank)
+    cut = 0.5 * (1.0 + math.erf(-math.sqrt(2.0)))  # P(N(0, 1) < -2)
 
     def normal(p, std):
         p.copy_(torch.randn(p.shape, generator=generator) * std)
+
+    def truncated(p, std):
+        """std times a standard normal cut at +-2, by the inverse CDF."""
+        u = cut + (1.0 - 2.0 * cut) * torch.rand(p.shape, generator=generator,
+                                                  dtype=torch.float64)
+        p.copy_(math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0) * std)
 
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -152,9 +162,10 @@ def init_parameters(model: GroundedVLModel, generator: torch.Generator) -> None:
                 p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
             else:
                 p.fill_(1.0 if leaf.endswith("scale") else 0.0)
-        elif leaf in ("word_embeddings", "position_embeddings",
-                      "token_type_embeddings", "relative_position_bias_table"):
+        elif leaf in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
             normal(p, 0.02)
+        elif leaf == "relative_position_bias_table":
+            truncated(p, 0.02)
         elif name == "tunable_linear.weight":
             p.zero_()
         elif name == "head.scales":
@@ -165,8 +176,8 @@ def init_parameters(model: GroundedVLModel, generator: torch.Generator) -> None:
             p.fill_(prior)
         elif leaf == "weight" and p.dim() == 4 and name.startswith("head."):
             normal(p, 0.01)
-        elif leaf == "weight" and p.dim() >= 2:
-            normal(p, 1.0 / math.sqrt(int(np.prod(p.shape[1:]))))
+        elif leaf == "weight" and p.dim() >= 2:  # lecun_normal's 0.8796 undoes the cut
+            truncated(p, 1.0 / math.sqrt(int(np.prod(p.shape[1:]))) / 0.87962566103423978)
         elif leaf == "weight":  # LayerNorm / GroupNorm scales
             p.fill_(1.0)
         else:

@@ -1,5 +1,6 @@
 """ATSS inference postprocessing (counterpart of
-`lpi_tpu/models/glip/postprocess.py:_atss_postprocess_impl`).
+`lpi_tpu/models/glip/postprocess.py:_atss_postprocess_impl` and
+`atss_postprocess_batch`, whose `vmap` is a loop over the batch here).
 
 Sigmoid token probabilities are averaged over each entity's tokens, scaled
 by sigmoid(centerness); per level: threshold, top-k, decode; across levels:
@@ -66,3 +67,25 @@ def atss_postprocess(
     top, idx = torch.topk(kept, min(post_nms_top_n, kept.shape[0]))
     return {"boxes": boxes[idx], "scores": top, "labels": labels[idx],
             "valid": torch.isfinite(top)}
+
+
+def atss_postprocess_batch(
+    anchors: torch.Tensor,  # [A, 4] (shared across the batch)
+    level_counts,
+    bbox_pred: torch.Tensor,  # [B, A, 4]
+    centerness: torch.Tensor,  # [B, A]
+    dot_logits: torch.Tensor,  # [B, A, T]
+    label_token_map: torch.Tensor,  # [B, C, T]
+    image_size: tuple = None,
+    pre_nms_thresh: float = 0.05,
+    pre_nms_top_n: int = 1000,
+    post_nms_top_n: int = 100,
+    nms_thresh: float = 0.6,
+) -> dict:
+    """`atss_postprocess` per image, stacked: dict of [B, K, ...]."""
+    outs = [atss_postprocess(anchors, level_counts, bbox_pred[b], centerness[b],
+                             dot_logits[b], label_token_map[b], image_size=image_size,
+                             pre_nms_thresh=pre_nms_thresh, pre_nms_top_n=pre_nms_top_n,
+                             post_nms_top_n=post_nms_top_n, nms_thresh=nms_thresh)
+            for b in range(bbox_pred.shape[0])]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}

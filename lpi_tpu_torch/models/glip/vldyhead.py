@@ -8,9 +8,13 @@
 * heads: bbox_pred scaled by a learnable per-level scalar, centerness, the
   (unused by LPI but present) cls logits, and the dot-product token head.
 
-Every deformable conv goes through `ops/deform_conv.py:deform_conv2d` and
-its CUDA window-sum kernels. The product-map dtype follows
-`deform_dtype`: "auto" means bf16 maps iff the model dtype is bf16.
+Every deformable conv takes one of two routes, by `deform_impl`:
+"pallas", "fast" and "fast_scan" go through the matmul-first
+`ops/deform_conv.py:deform_conv2d` and its CUDA window-sum kernels, whose
+product-map dtype follows `deform_dtype` ("auto" means bf16 maps iff the
+model dtype is bf16); "fused" goes through the sample-first
+`deform_conv2d_fused` and its CUDA kernels, fp32 inside, as the JAX fused
+route is. "exact" (the gather form) is not ported.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch.nn.functional as F
 from lpi_tpu_torch.config import DyHeadConfig
 from lpi_tpu_torch.models.layers import Conv, Dense, GroupNorm
 from lpi_tpu_torch.ops.clip import clip
-from lpi_tpu_torch.ops.deform_conv import deform_conv2d
+from lpi_tpu_torch.ops.deform_conv import deform_conv2d, deform_conv2d_fused
 
 
 def h_sigmoid(x):
@@ -37,12 +41,13 @@ class Conv3x3Norm(nn.Module):
 
     def __init__(self, channels: int, stride: int = 1,
                  dtype: torch.dtype = torch.float32, deform_window: int = 3,
-                 deform_dtype: torch.dtype = torch.float32):
+                 deform_dtype: torch.dtype = torch.float32, deform_impl: str = "pallas"):
         super().__init__()
         self.stride = stride
         self.dtype = dtype
         self.deform_window = deform_window
         self.deform_dtype = deform_dtype
+        self.deform_impl = deform_impl
         self.weight = nn.Parameter(torch.zeros(channels, channels, 3, 3))  # OIHW
         self.bias = nn.Parameter(torch.zeros(channels))
         self.gn = GroupNorm(16 if channels % 16 == 0 else 1, channels, eps=1e-5)
@@ -51,9 +56,13 @@ class Conv3x3Norm(nn.Module):
         if self.stride > 1:  # offsets are input-res; the conv wants output-res
             offset = offset[:, ::self.stride, ::self.stride]
             mask = mask[:, ::self.stride, ::self.stride]
-        y = deform_conv2d(x, offset, self.weight.permute(2, 3, 1, 0), self.bias,
-                          mask=mask, stride=self.stride, max_offset=self.deform_window,
-                          compute_dtype=self.deform_dtype)
+        w = self.weight.permute(2, 3, 1, 0)
+        if self.deform_impl == "fused":
+            y = deform_conv2d_fused(x, offset, w, self.bias, mask=mask, stride=self.stride,
+                                    max_offset=self.deform_window)
+        else:
+            y = deform_conv2d(x, offset, w, self.bias, mask=mask, stride=self.stride,
+                              max_offset=self.deform_window, compute_dtype=self.deform_dtype)
         return self.gn(y).to(self.dtype)
 
 
@@ -91,11 +100,13 @@ class DyConv(nn.Module):
     USE_DYRELU)."""
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
-                 deform_window: int = 3, deform_dtype: torch.dtype = torch.float32):
+                 deform_window: int = 3, deform_dtype: torch.dtype = torch.float32,
+                 deform_impl: str = "pallas"):
         super().__init__()
 
         def conv(stride):
-            return Conv3x3Norm(channels, stride, dtype, deform_window, deform_dtype)
+            return Conv3x3Norm(channels, stride, dtype, deform_window, deform_dtype,
+                               deform_impl)
 
         self.conv_same, self.conv_down, self.conv_up = conv(1), conv(2), conv(1)
         self.offset = Conv(channels, 27, 3)
@@ -134,17 +145,18 @@ class VLDyHead(nn.Module):
             raise NotImplementedError(
                 "only the LPI head (deformable convs, attention fusion, DyReLU) "
                 "is ported")
-        if cfg.deform_impl not in ("pallas", "fast", "fast_scan"):
+        if cfg.deform_impl not in ("pallas", "fast", "fast_scan", "fused"):
             raise NotImplementedError(
                 f"deform_impl {cfg.deform_impl!r} is not ported; the windowed "
-                f"impls ('pallas', 'fast', 'fast_scan') share one kernel here")
+                f"impls ('pallas', 'fast', 'fast_scan') share one kernel here, "
+                f"'fused' has its own")
         c = self.cfg = cfg
         deform_dtype = torch.bfloat16 if (
             c.deform_dtype == "bfloat16"
             or (c.deform_dtype == "auto" and dtype == torch.bfloat16)) else torch.float32
         self.num_anchors = num_anchors
         self.towers = nn.ModuleList(
-            DyConv(c.channels, dtype, c.deform_window, deform_dtype)
+            DyConv(c.channels, dtype, c.deform_window, deform_dtype, c.deform_impl)
             for _ in range(c.num_convs))
         A = num_anchors
         self.cls_logits = Conv(c.channels, A * (c.num_classes - 1), 1)

@@ -78,11 +78,16 @@ class LayerNorm(nn.LayerNorm):
 
 
 class GroupNorm(nn.GroupNorm):
-    """GroupNorm over NHWC tensors, computed and returned in fp32."""
+    """GroupNorm over NHWC tensors, computed and returned in fp32.
+
+    Calls the ATen op directly: `F.group_norm` refuses groups of a single
+    value (batch 1, a 1x1 level, one channel per group, as the gate's
+    16-channel head has at P6/P7), which Flax normalises to the bias."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(x.float().permute(0, 3, 1, 2), self.num_groups,
-                         self.weight, self.bias, self.eps)
+        y = torch.group_norm(x.float().permute(0, 3, 1, 2), self.num_groups,
+                             self.weight, self.bias, self.eps,
+                             torch.backends.cudnn.enabled)
         return y.permute(0, 2, 3, 1)
 
 

@@ -1,5 +1,5 @@
-"""The CUDA deform window kernels, forward and backward, against their
-plain PyTorch versions.
+"""The CUDA deform window kernels and the fused deform kernels, forward and
+backward, against their plain PyTorch versions.
 
 These need a CUDA card and `nvcc` (the kernels have no CPU form), so they
 skip elsewhere. The file imports neither JAX nor the JAX package, so that it
@@ -14,6 +14,7 @@ import torch
 
 from lpi_tpu_torch.ops import deform_conv as tdc
 from lpi_tpu_torch.ops import deform_window_kernel as tdk
+from lpi_tpu_torch.ops import fused_deform_kernel as tfk
 
 pytestmark = pytest.mark.gpu
 
@@ -138,3 +139,101 @@ def test_strided_cotangent_goes_through_the_function(card):
     out.transpose(1, 2).sum(dim=(0, 1, 2))[0].backward()
     torch.cuda.synchronize()
     assert torch.isfinite(h.grad).all() and h.grad.abs().sum() > 0
+
+
+def _fused_inputs(rng, B, H, W, C, Cout, stride, m=3, K=9):
+    """Features, offsets (with exact integers and the +-m edges), gate
+    (with exact 0 and 1 entries), weights and a cotangent, on the card."""
+    Ho, Wo = (H + stride - 1) // stride, (W + stride - 1) // stride
+    o = ((rng.rand(2, B, K, Ho, Wo) * 2 - 1) * m).astype(np.float32)
+    o.reshape(-1)[::5] = np.round(o.reshape(-1)[::5])
+    o.reshape(-1)[::7] = m
+    o.reshape(-1)[::11] = -m
+    g = rng.rand(B, K, Ho, Wo).astype(np.float32)
+    g.reshape(-1)[::6] = 0.0
+    g.reshape(-1)[::13] = 1.0
+    arrays = (rng.randn(B, H, W, C), o[0], o[1], g, rng.randn(K, C, Cout) * 0.1,
+              rng.randn(B, Ho, Wo, Cout))
+    return [torch.from_numpy(np.asarray(a, np.float32)).cuda() for a in arrays]
+
+
+def _within(got, want):
+    return bool(((got - want).abs() <= 1e-5 * max(1.0, want.abs().max().item())).all())
+
+
+@pytest.mark.parametrize("stride,H,W,C,Cout", [
+    (1, 14, 13, 16, 16), (1, 9, 9, 256, 256), (1, 5, 4, 20, 72),
+    (2, 13, 11, 16, 16), (2, 7, 7, 256, 256), (2, 4, 4, 6, 10)])
+def test_fused_kernel_matches_plain(card, stride, H, W, C, Cout):
+    f, oy, ox, g, w, _ = _fused_inputs(np.random.RandomState(6), 2, H, W, C, Cout, stride)
+    before = tfk.fused_deform.launches
+    got = tfk.fused_deform(f, oy, ox, g, w, 3, 3, stride)
+    torch.cuda.synchronize()
+    assert tfk.fused_deform.launches == before + 1
+    assert _within(got, tfk.fused_deform_reference(f, oy, ox, g, w, 3, 3, stride))
+
+
+@pytest.mark.parametrize("need_dw", [True, False])
+@pytest.mark.parametrize("stride,H,W,C,Cout", [
+    (1, 9, 10, 16, 16), (1, 6, 6, 256, 256), (1, 5, 4, 6, 10),
+    (2, 13, 11, 16, 24), (2, 7, 7, 256, 256), (2, 7, 5, 6, 10)])
+def test_fused_backward_kernel_matches_plain(card, need_dw, stride, H, W, C, Cout):
+    """d feats, d oy, d ox, d gate and d W within 1e-5 x max(1, max |plain|);
+    C = 6 takes the one-channel gather (no 16-byte loads)."""
+    f, oy, ox, g, w, ct = _fused_inputs(np.random.RandomState(7), 2, H, W, C, Cout, stride)
+    before = (tfk.fused_deform_backward.launches, tfk.fused_deform_backward.dw_launches)
+    got = tfk.fused_deform_backward(f, oy, ox, g, w, ct, 3, 3, stride, need_dw=need_dw)
+    torch.cuda.synchronize()
+    assert (tfk.fused_deform_backward.launches,
+            tfk.fused_deform_backward.dw_launches) == (before[0] + 1, before[1] + need_dw)
+    want = tfk.fused_deform_backward_reference(f, oy, ox, g, w, ct, 3, 3, stride)
+    assert (got[4] is None) == (not need_dw)
+    for a, b in zip(got, want if need_dw else want[:4]):
+        assert a.shape == b.shape and _within(a, b)
+
+
+def test_fused_backward_repeats_bit_for_bit(card):
+    """No atomics: two backward calls give identical gradients."""
+    f, oy, ox, g, w, ct = _fused_inputs(np.random.RandomState(8), 4, 28, 28, 64, 64, 1)
+    a = tfk.fused_deform_backward(f, oy, ox, g, w, ct, 3, 3, 1)
+    b = tfk.fused_deform_backward(f, oy, ox, g, w, ct, 3, 3, 1)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_deform_conv_fused_card_matches_cpu(card, stride):
+    """Forward and every gradient, with offsets at exactly +m and a gate
+    exactly 0; d W only where the weight needs it."""
+    rng = np.random.RandomState(9)
+    H = W = 9
+    Ho = (H + stride - 1) // stride
+    off = rng.randn(1, Ho, Ho, 18) * 2
+    off.reshape(-1)[::7] = 3.0
+    mask = rng.randn(1, Ho, Ho, 9)
+    mask.reshape(-1)[::6] = -1e4
+    args = [rng.randn(1, H, W, 16), off, rng.randn(3, 3, 16, 32) * 0.2, rng.randn(32), mask]
+    ct = torch.from_numpy(rng.randn(1, Ho, Ho, 32).astype(np.float32))
+    outs, grads = {}, {}
+    for device in ("cpu", "cuda"):
+        ts = [torch.tensor(a.astype(np.float32), device=device, requires_grad=True)
+              for a in args]
+        out = tdc.deform_conv2d_fused(*ts[:4], mask=ts[4], stride=stride)
+        out.backward(ct.to(device))
+        outs[device] = out.detach().cpu()
+        grads[device] = [t.grad.cpu() for t in ts]
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=1e-5, atol=1e-5)
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * max(1.0, b.abs().max().item()))
+
+
+def test_fused_function_computes_dw_only_for_a_trained_weight(card):
+    f, oy, ox, g, w, ct = _fused_inputs(np.random.RandomState(10), 1, 6, 6, 8, 8, 1)
+    f.requires_grad_(True)
+    before = tfk.fused_deform_backward.dw_launches
+    tfk.fused_taps(f, oy, ox, g, w, 3).backward(ct)
+    assert tfk.fused_deform_backward.dw_launches == before and w.grad is None
+    w.requires_grad_(True)
+    tfk.fused_taps(f, oy, ox, g, w, 3).backward(ct)
+    torch.cuda.synchronize()
+    assert tfk.fused_deform_backward.dw_launches == before + 1
+    assert torch.isfinite(w.grad).all() and w.grad.abs().sum() > 0
