@@ -41,9 +41,20 @@ The fused deformable conv (`deform_impl="fused"`) and the quality gate:
        gate's own config and with `deform_impl="fused"`, each held to the
        gate's bars.
 
+The pre-padded window sums (`window_accumulate_taps`, `window_accumulate`)
+and their path:
+
+   8.  hold both, forward and backward, against their plain versions at the
+       microbenchmark's P3 shape and at odd ones (one launch per call, two
+       backward calls equal bit for bit); run the deform-window
+       microbenchmark `lpi_tpu_torch.profile_deform` (which times them, and
+       the deformable conv per level by both routes) with the launch
+       counters checked; time the plain versions and, for the single map,
+       one `grid_sample` call beside them.
+
 Every launch counter is set to 0 just before the path it reads and read
-just after. The last lines are the kernels' JSON record, the card's name
-and power limit, and `{"ok": true, "device": {...}}`.
+just after. The last lines are the kernels' JSON record (ten kernels), the
+card's name and power limit, and `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -53,7 +64,6 @@ import json
 import os
 import re
 import statistics
-import subprocess
 import sys
 import time
 
@@ -64,8 +74,9 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-FP32_FLOPS = 67e12  # fp32 outside the tensor cores
+from lpi_tpu_torch.profile_deform import (bound_ms, card_line, device_time_ms,  # noqa: E402
+                                          eager_time_ms, window_bound_ms)
+
 M, K, KW = 3, 9, 3
 # (input side, launches per tower) of one 448 px forward: conv_same runs at
 # the five levels, conv_up at levels 1-4 (stride 1); conv_down reads levels
@@ -81,99 +92,31 @@ REL_TOL = 1e-5  # kernel vs plain: both sum in fp32, in different orders
 GATE_S1_SHAPES = {8: 1, 4: 2, 2: 2, 1: 4}
 GATE_S2_SHAPES = {8: 1, 4: 1, 2: 1, 1: 1}
 GATE_TOWERS, GATE_CHANNELS = 2, 16
+# rows 3 and 4, the pre-padded sums, reached by the deform-window
+# microbenchmark; held at its P3 shape and at odd ones: (batch, output
+# rows, output columns, Cout, taps of row 3, m); row 4 runs each with K = 1
+PADDED_KERNELS = ("window_accumulate_taps", "window_accumulate_taps_backward",
+                  "window_accumulate", "window_accumulate_backward")
+PADDED_CASES = ((TRAIN_BATCH, 56, 56, 256, K, M), (2, 13, 9, 12, 9, 3), (1, 7, 10, 3, 4, 2),
+                (3, 5, 6, 12, 4, 1), (1, 9, 4, 256, 9, 1))
 
 
 def log(*args):
     print(*args, flush=True)
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
-
-
-def _median_event_ms(run, reps: int, inner: int) -> float:
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop) / inner)
-    return statistics.median(times)
-
-
-def device_time_ms(fn, reps: int = 20, inner: int = 1) -> float:
-    """Device time of one call: `inner` calls captured in a CUDA graph,
-    replayed `reps` times between CUDA events; the median per call. The
-    graph takes the host's launch cost out of the measurement."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(inner):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    return _median_event_ms(graph.replay, reps, inner)
-
-
-def eager_time_ms(fn, reps: int = 20, inner: int = 10) -> float:
-    """Time per call of `inner` back-to-back eager calls: where the host
-    cannot keep up with the device, this is the host's cost per call."""
-    for _ in range(3):
-        fn()
-
-    def run():
-        for _ in range(inner):
-            fn()
-
-    return _median_event_ms(run, reps, inner)
-
-
-def _bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def bound_ms(h_all: torch.Tensor, oy: torch.Tensor, Cout: int):
-    """Least time for the window sum: bytes (h_all, offsets and gate read
-    once, out written once) over HBM rate vs fp32 FMAs of 4 corners x K taps
-    per output value over the fp32 rate."""
-    B, _, Ho, Wo = oy.shape
-    nbytes = (h_all.numel() * h_all.element_size() + 3 * oy.numel() * 4
-              + B * Ho * Wo * Cout * 4)
-    return _bound(nbytes, B * Ho * Wo * Cout * K * 4 * 2)
-
-
-def backward_bound_ms(h_all: torch.Tensor, oy: torch.Tensor, Cout: int):
-    """Least time for the VJP: h_all, ct and the three offset maps read
-    once; d h_all and the three gradient maps written once; vs the fp32
-    flops of the corner dot products and the d h_all terms (4 corners x 2
-    flops per tap and channel, each)."""
-    B, _, Ho, Wo = oy.shape
-    nbytes = (2 * h_all.numel() * h_all.element_size() + B * Ho * Wo * Cout * 4
-              + 6 * oy.numel() * 4)
-    return _bound(nbytes, B * Ho * Wo * Cout * K * 4 * 2 * 2)
-
-
-def offset_inputs(gen, batch: int, Ho: int):
+def offset_inputs(gen, batch: int, Ho: int, Wo: int | None = None, taps: int = K, m: int = M):
     """Offsets (uniform in [-m, m], with exact integers and the +-m edges
-    mixed in) and a gate (with exact 0 and 1 entries), [B, K, Ho, Ho]."""
-    oy = (torch.rand(batch, K, Ho, Ho, device="cuda", generator=gen) * 2 - 1) * M
-    ox = (torch.rand(batch, K, Ho, Ho, device="cuda", generator=gen) * 2 - 1) * M
+    mixed in) and a gate (with exact 0 and 1 entries), [B, taps, Ho, Wo]
+    (Wo = Ho by default)."""
+    shape = (batch, taps, Ho, Ho if Wo is None else Wo)
+    oy = (torch.rand(*shape, device="cuda", generator=gen) * 2 - 1) * m
+    ox = (torch.rand(*shape, device="cuda", generator=gen) * 2 - 1) * m
     oy.view(-1)[::7] = torch.round(oy.view(-1)[::7])
     ox.view(-1)[::5] = torch.round(ox.view(-1)[::5])
-    oy.view(-1)[::11] = float(M)
-    ox.view(-1)[::13] = -float(M)
-    gate = torch.rand(batch, K, Ho, Ho, device="cuda", generator=gen)
+    oy.view(-1)[::11] = float(m)
+    ox.view(-1)[::13] = -float(m)
+    gate = torch.rand(*shape, device="cuda", generator=gen)
     gate.view(-1)[::6] = 0.0
     gate.view(-1)[::17] = 1.0
     return oy.contiguous(), ox.contiguous(), gate.contiguous()
@@ -222,7 +165,7 @@ def check_forward_kernels(dk, gen, records):
                     ms = device_time_ms(lambda: fn(*args), inner=10)
                     plain = device_time_ms(lambda: ref_fn(*args))
                     eager = eager_time_ms(lambda: fn(*args))
-                    bms, kind = bound_ms(h, oy, 256)
+                    bms, kind = window_bound_ms(h, oy, 256)
                     log(f"kernel {name} {str(dtype)[6:]} b{batch} in {side}x{side}x{K * 256} "
                         f"stride {stride}: {ms:.6f} ms, plain {plain:.6f} ms, bound "
                         f"{bms:.6f} ms ({kind}), eager call {eager:.6f} ms, max abs "
@@ -264,22 +207,14 @@ def check_backward_kernels(dk, gen, records):
                     raise AssertionError(f"{name}: d h_all is {got[0].dtype}, want {dtype}")
                 errs = []
                 for what, a, b in zip(("dh", "doy", "dox", "dgate"), got, want):
-                    a = a.float()
-                    scale = max(1.0, b.abs().max().item())
-                    bar = REL_TOL * scale
-                    excess = (a - b).abs() - bar
-                    if what == "dh" and dtype == torch.bfloat16:
-                        excess = excess - 2.0 ** -8 * b.abs()
-                    err = (a - b).abs().max().item()
-                    if not (excess.max().item() <= 0 and torch.isfinite(a).all()):
-                        raise AssertionError(f"{name} {dtype} side {side} {what}: max abs "
-                                             f"err {err} over the bar")
+                    err = _held(f"{name} {dtype} side {side} {what}", a, b,
+                                bf16=what == "dh" and dtype == torch.bfloat16)
                     errs.append(f"{what} {err:.3e}")
                     if what != "dh" or dtype == torch.float32:
                         rec["max_abs_err"] = max(rec["max_abs_err"], err)
                 ms = device_time_ms(lambda: fn(*args), inner=10)
                 plain = device_time_ms(lambda: ref_fn(*args))
-                bms, kind = backward_bound_ms(h, oy, 256)
+                bms, kind = window_bound_ms(h, oy, 256, backward=True)
                 log(f"kernel {name} {str(dtype)[6:]} b{TRAIN_BATCH} in {side}x{side}x{K * 256} "
                     f"stride {stride}: {ms:.6f} ms, plain {plain:.6f} ms, bound {bms:.6f} ms "
                     f"({kind}), max abs err {', '.join(errs)}")
@@ -320,16 +255,21 @@ def fused_bound_ms(f, oy, C, Cout, backward=False, dw=False):
         if dw:  # re-sample and samp^T ct
             nbytes += w_bytes
             flops += P * (2 * K * C * Cout + 8 * K * C)
-    return _bound(nbytes, flops)
+    return bound_ms(nbytes, flops)
 
 
-def _held(name, got, want):
-    """Max abs error of `got` against the plain `want`, held to 1e-5 x
-    max(1, max |plain|)."""
+def _held(name, got, want, bf16=False):
+    """Max abs error of `got` against the plain fp32 `want`, held to 1e-5 x
+    max(1, max |plain|); a result that the kernel rounds to bf16 once
+    (`bf16`) gets half a bf16 step (2^-8 |plain|) more."""
+    got = got.float()
     err = (got - want).abs().max().item()
-    scale = max(1.0, want.abs().max().item())
-    if not (err <= REL_TOL * scale and torch.isfinite(got).all()):
-        raise AssertionError(f"{name}: max abs err {err} > {REL_TOL} x {scale}")
+    excess = (got - want).abs() - REL_TOL * max(1.0, want.abs().max().item())
+    if bf16:
+        excess = excess - 2.0 ** -8 * want.abs()
+    if not (excess.max().item() <= 0 and torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: max abs err {err} over the bar {REL_TOL} x max(1, "
+                             f"max |plain|){' + 2^-8 |plain|' if bf16 else ''}")
     return err
 
 
@@ -740,6 +680,164 @@ def gate_phase(dk, fk):
             raise AssertionError(f"gate {route}: {out} misses the bars {QUALITY_BARS}")
 
 
+def _launched_once(fn, *args):
+    """`fn(*args)`, synchronised, checking that it counted one launch."""
+    before = fn.launches
+    out = fn(*args)
+    torch.cuda.synchronize()
+    if fn.launches != before + 1:
+        raise AssertionError(f"{fn.__name__}: {fn.launches - before} launches for one call")
+    return out
+
+
+def check_padded_kernels(dk, gen, records):
+    """Phase 8a: rows 3 and 4 (the pre-padded sums), forward and backward,
+    against their plain versions at the microbenchmark's P3 shape and at odd
+    ones, with the bars of `_held` (a bf16 d hp plus half a bf16 step); one
+    launch per call, and two backward calls equal bit for bit."""
+    for B, Ho, Wo, Cout, taps, m in PADDED_CASES:
+        for K_ in (taps, 1):
+            oy, ox, gate = offset_inputs(gen, B, Ho, Wo, K_, m)
+            for dtype in (torch.float32, torch.bfloat16) if K_ > 1 else (torch.float32,):
+                hp = torch.randn(B, Ho + 2 * m + 1, Wo + 2 * m + 1, K_ * Cout, device="cuda",
+                                 generator=gen).to(dtype)
+                ct = torch.randn(B, Ho, Wo, Cout, device="cuda", generator=gen)
+                if K_ > 1:
+                    name, args = "window_accumulate_taps", (hp, oy, ox, gate)
+                    fwd_args, bwd_args = (*args, m, K_), (*args, ct, m, K_)
+                    ref_bwd_args = (hp.float(), oy, ox, gate, ct, m, K_)
+                else:
+                    name, args = "window_accumulate", (hp, oy[:, 0], ox[:, 0])
+                    fwd_args, bwd_args = (*args, m), (*args, ct, m)
+                    ref_bwd_args = (*args, ct, m)
+                fwd, bwd = getattr(dk, name), getattr(dk, f"{name}_backward")
+                label = f"{name} {str(dtype)[6:]} b{B} out {Ho}x{Wo} Cout {Cout} K {K_} m {m}"
+                err = _held(label, _launched_once(fwd, *fwd_args),
+                            getattr(dk, f"{name}_reference")(*fwd_args))
+                records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+                got = _launched_once(bwd, *bwd_args)
+                if not all(torch.equal(a, b) for a, b in zip(got, _launched_once(bwd, *bwd_args))):
+                    raise AssertionError(f"{label}: two backward calls differ")
+                if got[0].dtype != dtype or got[0].shape != hp.shape:
+                    raise AssertionError(f"{label}: d hp is {got[0].dtype} {tuple(got[0].shape)}")
+                want = getattr(dk, f"{name}_backward_reference")(*ref_bwd_args)
+                errs = []
+                for what, a, b in zip(("dhp", "doy", "dox", "dgate"), got, want):
+                    bf16 = what == "dhp" and dtype == torch.bfloat16
+                    errs.append(_held(f"{label} {what}", a, b, bf16=bf16))
+                    if not bf16:
+                        rec = records[f"{name}_backward"]
+                        rec["max_abs_err"] = max(rec["max_abs_err"], errs[-1])
+                log(f"kernel {label}: forward max abs err {err:.3e}; backward "
+                    + ", ".join(f"{w} {e:.3e}" for w, e in zip(("dhp", "doy", "dox", "dgate"),
+                                                               errs)) + "; repeats bit for bit")
+
+
+def grid_sample_inputs(hp, oy, ox, m: int):
+    """`window_accumulate` as one `grid_sample` call: hp as [B, C, Hp, Wp]
+    and the grid (x, y) at (x + m + ox, y + m + oy), normalised for
+    align_corners=True. With offsets in [-m, m] every sample lies inside
+    the map, so bilinear sampling with zero padding is the same function."""
+    B, Hp, Wp, _ = hp.shape
+    Ho, Wo = oy.shape[1], oy.shape[2]
+    ys = torch.arange(Ho, device=hp.device, dtype=torch.float32).view(1, Ho, 1) + m + oy
+    xs = torch.arange(Wo, device=hp.device, dtype=torch.float32).view(1, 1, Wo) + m + ox
+    grid = torch.stack((2 * xs / (Wp - 1) - 1, 2 * ys / (Hp - 1) - 1), dim=-1)
+    return hp.permute(0, 3, 1, 2), grid.contiguous()
+
+
+def padded_records(dk, results, records):
+    """Phase 8c: the records of rows 3 and 4 at P3 of 448 px, batch 4, the
+    spread offsets (row 3 with a bf16 map): the kernel's device time from
+    the microbenchmark, the plain version's on the same inputs, the bound
+    from these inputs, and for row 4 one `grid_sample` call (forward, and
+    its backward through `torch.autograd.grad`)."""
+    import torch.nn.functional as F
+
+    from lpi_tpu_torch.profile_deform import padded_inputs
+
+    side, Cout = 56, 256
+    hp, gate, _, o = padded_inputs(TRAIN_BATCH, side, side, Cout, M, K, torch.bfloat16)
+    ct = torch.ones(TRAIN_BATCH, side, side, Cout, device="cuda")
+    bench = results["window_accumulate_taps"]["bfloat16"]["spread"]
+    cases = [("window_accumulate_taps", bench["fwd"]["ms"], window_bound_ms(hp, o, Cout),
+              lambda: dk.window_accumulate_taps_reference(hp, o, o, gate, M, K)),
+             ("window_accumulate_taps_backward", bench["bwd"]["ms"],
+              window_bound_ms(hp, o, Cout, backward=True),
+              lambda: dk.window_accumulate_taps_backward_reference(hp, o, o, gate, ct, M, K))]
+    hp1, _, _, o1 = padded_inputs(TRAIN_BATCH, side, side, Cout, M, 1, torch.float32)
+    o1 = o1[:, 0]
+    bench = results["window_accumulate"]["spread"]
+    cases += [("window_accumulate", bench["fwd"]["ms"], window_bound_ms(hp1, o1, Cout, maps=2),
+               lambda: dk.window_accumulate_reference(hp1, o1, o1, M)),
+              ("window_accumulate_backward", bench["bwd"]["ms"],
+               window_bound_ms(hp1, o1, Cout, maps=2, backward=True),
+               lambda: dk.window_accumulate_backward_reference(hp1, o1, o1, ct, M))]
+    for name, ms, (bms, kind), plain in cases:
+        rec = records[name]
+        rec.update(ms=ms, plain_ms=device_time_ms(plain), bound_ms=bms)
+        rec["bound_kinds"].add(kind)
+
+    inp, grid = grid_sample_inputs(hp1, o1, o1, M)
+    sample = dict(mode="bilinear", padding_mode="zeros", align_corners=True)
+    want = dk.window_accumulate_reference(hp1, o1, o1, M)
+    got = F.grid_sample(inp, grid, **sample).permute(0, 2, 3, 1)
+    err = (got - want).abs().max().item()
+    scale = max(1.0, want.abs().max().item())
+    log(f"grid_sample against the plain window_accumulate at P3: max abs err {err:.3e} "
+        f"(bar 1e-4 x {scale:.3f}: the grid's normalisation rounds)")
+    if not err <= 1e-4 * scale:
+        raise AssertionError("grid_sample does not compute window_accumulate")
+    records["window_accumulate"]["library_ms"] = device_time_ms(
+        lambda: F.grid_sample(inp, grid, **sample))
+    # the op `torch.autograd.grad` runs for grid_sample's VJP (bilinear = 0,
+    # zeros = 0), called alone: a CUDA graph cannot hold the backward of a
+    # forward recorded outside it
+    ct_nchw = ct.permute(0, 3, 1, 2)
+    vjp = (ct_nchw, inp, grid, 0, 0, True, [True, True])
+    records["window_accumulate_backward"]["library_ms"] = device_time_ms(
+        lambda: torch.ops.aten.grid_sampler_2d_backward(*vjp))
+    d_inp, d_grid = torch.ops.aten.grid_sampler_2d_backward(*vjp)
+    dhp, doy, _ = dk.window_accumulate_backward_reference(hp1, o1, o1, ct, M)
+    doy_err = (d_grid[..., 1] * 2 / (hp1.shape[1] - 1) - doy).abs()
+    integer = o1 == torch.round(o1)
+    log(f"grid_sample backward against the plain one at P3: d hp max abs err "
+        f"{(d_inp.permute(0, 2, 3, 1) - dhp).abs().max().item():.3e}; d oy max abs err "
+        f"{doy_err[~integer].max().item():.3e} off the integer offsets and "
+        f"{doy_err[integer].amax().item() if integer.any() else 0.0:.3e} at the "
+        f"{int(integer.sum())} integer ones (grid_sample's derivative there is not the "
+        f"Pallas VJP's 0)")
+    for name in ("window_accumulate_taps", "window_accumulate_taps_backward",
+                 "window_accumulate", "window_accumulate_backward"):
+        rec = records[name]
+        lib = rec["library_ms"]
+        log(f"record {name} at P3, b{TRAIN_BATCH}: {rec['ms']:.6f} ms, plain "
+            f"{rec['plain_ms']:.6f} ms, bound {rec['bound_ms']:.6f} ms, library "
+            + ("none (no one call computes it)" if lib is None else f"{lib:.6f} ms"))
+
+
+def microbenchmark_phase(dk, fk, gen, records):
+    """Phase 8: rows 3 and 4 against their plain versions (8a), then their
+    path, the deform-window microbenchmark `lpi_tpu_torch.profile_deform`,
+    driven with every counter set to 0 just before and read just after
+    (8b), then the records (8c)."""
+    from lpi_tpu_torch import profile_deform
+
+    check_padded_kernels(dk, gen, records)
+    reset_counts(dk, fk)
+    results = profile_deform.profile(log)
+    launches = {k: v for k, v in launch_counts(dk, fk).items() if v}
+    log(f"microbenchmark: launches {launches}")
+    # bench_conv runs the stride-1 window sums and the fused conv too
+    used = {*PADDED_KERNELS, "window_accumulate_taps_inpad",
+            "window_accumulate_taps_inpad_backward", "fused_deform", "fused_deform_backward"}
+    if set(launches) != used:
+        raise AssertionError(f"microbenchmark: launches {launches}, want {sorted(used)}")
+    for name in PADDED_KERNELS:
+        records[name]["launches"] = launches[name]
+    padded_records(dk, results, records)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -767,9 +865,15 @@ def main() -> int:
         ("window_accumulate_taps_inpad_backward", f"{window}:597"),
         ("window_accumulate_taps_s2_backward", f"{window}:823"),
         ("fused_deform", f"{fused}:181", fused_src),
-        ("fused_deform_backward", f"{fused}:225", fused_src))}
+        ("fused_deform_backward", f"{fused}:225", fused_src),
+        ("window_accumulate_taps", f"{window}:287"),
+        ("window_accumulate_taps_backward", f"{window}:341"),
+        ("window_accumulate", f"{window}:883"),
+        ("window_accumulate_backward", f"{window}:921"))}
     records["fused_deform"]["pallas_call"] = f"{fused}:201"
     records["fused_deform_backward"]["pallas_call"] = f"{fused}:238"
+    for name, line in zip(PADDED_KERNELS, (320, 357, 897, 926)):
+        records[name]["pallas_call"] = f"{window}:{line}"
     gen = torch.Generator(device="cuda").manual_seed(0)
     check_forward_kernels(dk, gen, records)
     check_backward_kernels(dk, gen, records)
@@ -828,6 +932,11 @@ def main() -> int:
     t = time.perf_counter()
     gate_phase(dk, fk)
     log(f"phase 7: {time.perf_counter() - t:.3f} s")
+
+    # ---- rows 3 and 4 and their path, the deform-window microbenchmark ---
+    t = time.perf_counter()
+    microbenchmark_phase(dk, fk, gen, records)
+    log(f"phase 8: {time.perf_counter() - t:.3f} s")
 
     for rec in records.values():
         kinds = rec.pop("bound_kinds")

@@ -82,6 +82,32 @@
 // rate. The gather re-reads each offset triple and ct vector from L1/L2 for
 // every input pixel that a corner reaches; tiling ct in shared memory is
 // later work.
+//
+// ---------------------------------------------------------------------------
+// The pre-padded sums (`lpi_window_padded_fwd`, `lpi_window_padded_bwd`, the
+// PADDED template flag): replace the Pallas TPU kernels of
+//   * `window_accumulate_taps` (`_fwd_taps_kernel`, VJP `_bwd_taps_kernel`):
+//     the gated K-tap sum over a pre-shifted, pre-padded map hp_all [B,
+//     Ho+2m+1, Wo+2m+1, K*Cout], fp32 or bf16, in which each tap's (ky, kx)
+//     shift is baked into its pad, so tap k reads hp_k[y + m + dy, x + m + dx]
+//     (always inside the map for dy, dx in [-m, m+1]);
+//   * `window_accumulate` (`_fwd_kernel`, VJP `_bwd_kernel`): the single map
+//     hp [B, Ho+2m+1, Wo+2m+1, C] fp32, no gate (K = 1, a null gate is g = 1,
+//     and the backward writes no dgate).
+// Same kernels, same corner rule, same gather and warp reductions as above,
+// at stride 1; only the row and column shift of each tap differs. d hp covers
+// every position of the padded map, the pad ring included, as the JAX VJP
+// returns it. A bf16 d hp is summed in fp32 and rounded once (the TPU kernel
+// rounds after every displacement).
+//
+// Bound on an H100 (3.35 TB/s), bytes, at P3 of 448 px, batch 4, Cout 256:
+// row 3 with a bf16 hp_all [4, 63, 63, 2304]: forward 87.36 MB (hp 73.2 MB,
+// offsets and gate 1.4 MB, out 12.8 MB), 26.1 us; backward 161.9 MB (hp read
+// and d hp written, ct, offsets read and their gradients written), 48.3 us;
+// fp32 hp: 47.9 us and 92.0 us. Row 4 at hp [4, 63, 63, 256] fp32: forward
+// 29.2 MB, 8.7 us; backward 45.6 MB, 13.6 us. The arithmetic is a few us at
+// the fp32 rate. The padded map is 13% larger than the unpadded one and its
+// pad ring is read only by border pixels, so the same design applies.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -107,7 +133,13 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&v)[VEC
   }
 }
 
-template <typename T, int STRIDE, int VEC>
+// Row shift of tap index t (ky or kx) in the map the kernel reads: the
+// unpadded map reads h_k[S*y + t - 1 + d]; the pre-shifted, pre-padded map
+// has every tap's shift baked into its pad and reads hp_k[y + m + d].
+template <bool PADDED>
+__device__ __forceinline__ int tap_shift(int t, int m) { return PADDED ? m : t - 1; }
+
+template <typename T, int STRIDE, bool PADDED, int VEC>
 __global__ void __launch_bounds__(256)
 window_taps_kernel(const T* __restrict__ h, const float* __restrict__ oy,
                    const float* __restrict__ ox, const float* __restrict__ gate,
@@ -136,10 +168,10 @@ window_taps_kernel(const T* __restrict__ h, const float* __restrict__ oy,
   for (int k = 0; k < K; ++k) {
     const float o_y = __ldg(oy + obase + k * plane);
     const float o_x = __ldg(ox + obase + k * plane);
-    const float g = __ldg(gate + obase + k * plane);
+    const float g = gate ? __ldg(gate + obase + k * plane) : 1.f;
     const float fy = floorf(o_y), fx = floorf(o_x);
-    const int by = STRIDE * yo + k / kw - 1;
-    const int bx = STRIDE * xo + k % kw - 1;
+    const int by = STRIDE * yo + tap_shift<PADDED>(k / kw, m);
+    const int bx = STRIDE * xo + tap_shift<PADDED>(k % kw, m);
     const T* hk = hb + (long long)k * Cout;
 #pragma unroll
     for (int a = 0; a < 2; ++a) {
@@ -173,7 +205,7 @@ window_taps_kernel(const T* __restrict__ h, const float* __restrict__ oy,
   }
 }
 
-template <typename T, int STRIDE, int VEC>
+template <typename T, int STRIDE, bool PADDED, int VEC>
 cudaError_t launch(const void* h, const float* oy, const float* ox, const float* gate,
                    float* out, int B, int H, int W, int Ho, int Wo, int K, int kw,
                    int Cout, int m, cudaStream_t stream) {
@@ -185,21 +217,21 @@ cudaError_t launch(const void* h, const float* oy, const float* ox, const float*
   if (gx > 2147483647LL) return cudaErrorInvalidConfiguration;
   dim3 block(bx, by);
   dim3 grid((unsigned)gx, (unsigned)((groups + bx - 1) / bx));
-  window_taps_kernel<T, STRIDE, VEC><<<grid, block, 0, stream>>>(
+  window_taps_kernel<T, STRIDE, PADDED, VEC><<<grid, block, 0, stream>>>(
       static_cast<const T*>(h), oy, ox, gate, out, H, W, Ho, Wo, K, kw, Cout, m, npix);
   return cudaGetLastError();
 }
 
-template <int STRIDE>
+template <int STRIDE, bool PADDED>
 cudaError_t dispatch(const void* h, const float* oy, const float* ox, const float* gate,
                      float* out, int B, int H, int W, int Ho, int Wo, int K, int kw,
                      int Cout, int m, int is_bf16, int vec, cudaStream_t s) {
   if (is_bf16) {
-    if (vec == 8) return launch<__nv_bfloat16, STRIDE, 8>(h, oy, ox, gate, out, B, H, W, Ho, Wo, K, kw, Cout, m, s);
-    if (vec == 1) return launch<__nv_bfloat16, STRIDE, 1>(h, oy, ox, gate, out, B, H, W, Ho, Wo, K, kw, Cout, m, s);
+    if (vec == 8) return launch<__nv_bfloat16, STRIDE, PADDED, 8>(h, oy, ox, gate, out, B, H, W, Ho, Wo, K, kw, Cout, m, s);
+    if (vec == 1) return launch<__nv_bfloat16, STRIDE, PADDED, 1>(h, oy, ox, gate, out, B, H, W, Ho, Wo, K, kw, Cout, m, s);
   } else {
-    if (vec == 4) return launch<float, STRIDE, 4>(h, oy, ox, gate, out, B, H, W, Ho, Wo, K, kw, Cout, m, s);
-    if (vec == 1) return launch<float, STRIDE, 1>(h, oy, ox, gate, out, B, H, W, Ho, Wo, K, kw, Cout, m, s);
+    if (vec == 4) return launch<float, STRIDE, PADDED, 4>(h, oy, ox, gate, out, B, H, W, Ho, Wo, K, kw, Cout, m, s);
+    if (vec == 1) return launch<float, STRIDE, PADDED, 1>(h, oy, ox, gate, out, B, H, W, Ho, Wo, K, kw, Cout, m, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -254,8 +286,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// dh gather: thread `t` owns VEC channels of one (input pixel, tap).
-template <typename T, int STRIDE, int VEC>
+// dh gather: thread `t` owns VEC channels of one (input pixel, tap). H x W
+// is the map's own size (the padded size in the PADDED mode, whose d hp
+// covers the pad ring too).
+template <typename T, int STRIDE, bool PADDED, int VEC>
 __device__ __forceinline__ void dh_gather(
     const float* __restrict__ oy, const float* __restrict__ ox,
     const float* __restrict__ gate, const float* __restrict__ ct, T* __restrict__ dh,
@@ -272,32 +306,32 @@ __device__ __forceinline__ void dh_gather(
   const long long b = rest / H;
   const int k = c0 / Cout;
   const int c = c0 - k * Cout;
-  const int ky = k / kw, kx = k % kw;
+  const int sy = tap_shift<PADDED>(k / kw, m), sx = tap_shift<PADDED>(k % kw, m);
   const long long plane = (long long)Ho * Wo;
   const float* oyk = oy + (b * K + k) * plane;
   const float* oxk = ox + (b * K + k) * plane;
-  const float* gk = gate + (b * K + k) * plane;
+  const float* gk = gate ? gate + (b * K + k) * plane : nullptr;
   const float* ctb = ct + b * plane * Cout + c;
-  // output rows whose displacement dy = iy - S*y - ky + 1 lies in [-m, m+1]
-  const int ylo = max(0, -floor_div(-(iy - ky - m), STRIDE));
-  const int yhi = min(Ho - 1, floor_div(iy - ky + 1 + m, STRIDE));
-  const int xlo = max(0, -floor_div(-(ix - kx - m), STRIDE));
-  const int xhi = min(Wo - 1, floor_div(ix - kx + 1 + m, STRIDE));
+  // output rows whose displacement dy = iy - S*y - sy lies in [-m, m+1]
+  const int ylo = max(0, -floor_div(-(iy - sy - m - 1), STRIDE));
+  const int yhi = min(Ho - 1, floor_div(iy - sy + m, STRIDE));
+  const int xlo = max(0, -floor_div(-(ix - sx - m - 1), STRIDE));
+  const int xhi = min(Wo - 1, floor_div(ix - sx + m, STRIDE));
 
   float acc[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
 
   for (int y = ylo; y <= yhi; ++y) {
-    const float dy = (float)(iy - STRIDE * y - ky + 1);
+    const float dy = (float)(iy - STRIDE * y - sy);
     for (int x = xlo; x <= xhi; ++x) {
       const long long o = (long long)y * Wo + x;
       const float wy = fmaxf(0.f, 1.f - fabsf(__ldg(oyk + o) - dy));
       if (wy == 0.f) continue;
-      const float dx = (float)(ix - STRIDE * x - kx + 1);
+      const float dx = (float)(ix - STRIDE * x - sx);
       const float wx = fmaxf(0.f, 1.f - fabsf(__ldg(oxk + o) - dx));
       if (wx == 0.f) continue;
-      const float cf = __ldg(gk + o) * wy * wx;
+      const float cf = (gk ? __ldg(gk + o) : 1.f) * wy * wx;
       if (cf == 0.f) continue;
       float v[VEC];
       load_ct<VEC>(ctb + o * Cout, v);
@@ -308,8 +342,9 @@ __device__ __forceinline__ void dh_gather(
   store_vec<T, VEC>(dh + pix * KC + c0, acc);
 }
 
-// doy, dox, dgate: one warp per (output pixel, tap) item.
-template <typename T, int STRIDE, int VEC>
+// doy, dox, dgate: one warp per (output pixel, tap) item. Without a gate
+// (null `gate`, g = 1) dgate is null and not written.
+template <typename T, int STRIDE, bool PADDED, int VEC>
 __device__ __forceinline__ void offset_grads(
     const T* __restrict__ h, const float* __restrict__ oy, const float* __restrict__ ox,
     const float* __restrict__ gate, const float* __restrict__ ct, float* __restrict__ doy,
@@ -325,10 +360,11 @@ __device__ __forceinline__ void offset_grads(
   const long long KC = (long long)K * Cout;
   const long long plane = (long long)Ho * Wo;
   const long long oidx = (b * K + k) * plane + (long long)yo * Wo + xo;
-  const float o_y = __ldg(oy + oidx), o_x = __ldg(ox + oidx), g = __ldg(gate + oidx);
+  const float o_y = __ldg(oy + oidx), o_x = __ldg(ox + oidx);
+  const float g = gate ? __ldg(gate + oidx) : 1.f;
   const float lo = (float)(-m), hi = (float)(m + 1);
-  const int by = STRIDE * yo + k / kw - 1;
-  const int bx = STRIDE * xo + k % kw - 1;
+  const int by = STRIDE * yo + tap_shift<PADDED>(k / kw, m);
+  const int bx = STRIDE * xo + tap_shift<PADDED>(k % kw, m);
 
   float wy[2], dwy[2], wx[2], dwx[2];
   int ry[2], rx[2];
@@ -387,12 +423,12 @@ __device__ __forceinline__ void offset_grads(
   if (lane == 0) {
     doy[oidx] = pdy;
     dox[oidx] = pdx;
-    dgate[oidx] = pdg;
+    if (dgate) dgate[oidx] = pdg;
   }
 }
 
 // Blocks [0, dh_blocks) gather dh; the rest compute doy, dox and dgate.
-template <typename T, int STRIDE, int VEC>
+template <typename T, int STRIDE, bool PADDED, int VEC>
 __global__ void __launch_bounds__(kBwdThreads)
 window_taps_bwd_kernel(const T* __restrict__ h, const float* __restrict__ oy,
                        const float* __restrict__ ox, const float* __restrict__ gate,
@@ -402,17 +438,17 @@ window_taps_bwd_kernel(const T* __restrict__ h, const float* __restrict__ oy,
                        int K, int kw, int Cout, int m, long long dh_blocks) {
   if ((long long)blockIdx.x < dh_blocks) {
     const long long total = (long long)B * H * W * (K * Cout / VEC);
-    dh_gather<T, STRIDE, VEC>(oy, ox, gate, ct, dh, H, W, Ho, Wo, K, kw, Cout, m,
-                              (long long)blockIdx.x * kBwdThreads + threadIdx.x, total);
+    dh_gather<T, STRIDE, PADDED, VEC>(oy, ox, gate, ct, dh, H, W, Ho, Wo, K, kw, Cout, m,
+                                      (long long)blockIdx.x * kBwdThreads + threadIdx.x, total);
   } else {
     const long long n_items = (long long)B * Ho * Wo * K;
     const long long item = ((long long)blockIdx.x - dh_blocks) * kBwdWarps + threadIdx.x / 32;
-    offset_grads<T, STRIDE, VEC>(h, oy, ox, gate, ct, doy, dox, dgate, H, W, Ho, Wo, K,
-                                 kw, Cout, m, item, n_items, threadIdx.x % 32);
+    offset_grads<T, STRIDE, PADDED, VEC>(h, oy, ox, gate, ct, doy, dox, dgate, H, W, Ho, Wo,
+                                         K, kw, Cout, m, item, n_items, threadIdx.x % 32);
   }
 }
 
-template <typename T, int STRIDE, int VEC>
+template <typename T, int STRIDE, bool PADDED, int VEC>
 cudaError_t launch_bwd(const void* h, const float* oy, const float* ox, const float* gate,
                        const float* ct, void* dh, float* doy, float* dox, float* dgate,
                        int B, int H, int W, int Ho, int Wo, int K, int kw, int Cout, int m,
@@ -421,63 +457,67 @@ cudaError_t launch_bwd(const void* h, const float* oy, const float* ox, const fl
   const long long dh_blocks = (dh_threads + kBwdThreads - 1) / kBwdThreads;
   const long long off_blocks = ((long long)B * Ho * Wo * K + kBwdWarps - 1) / kBwdWarps;
   if (dh_blocks + off_blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
-  window_taps_bwd_kernel<T, STRIDE, VEC><<<(unsigned)(dh_blocks + off_blocks), kBwdThreads, 0,
-                                           stream>>>(
+  window_taps_bwd_kernel<T, STRIDE, PADDED, VEC><<<(unsigned)(dh_blocks + off_blocks),
+                                                   kBwdThreads, 0, stream>>>(
       static_cast<const T*>(h), oy, ox, gate, ct, static_cast<T*>(dh), doy, dox, dgate, B, H,
       W, Ho, Wo, K, kw, Cout, m, dh_blocks);
   return cudaGetLastError();
 }
 
-template <int STRIDE>
+template <int STRIDE, bool PADDED>
 cudaError_t dispatch_bwd(const void* h, const float* oy, const float* ox, const float* gate,
                          const float* ct, void* dh, float* doy, float* dox, float* dgate,
                          int B, int H, int W, int Ho, int Wo, int K, int kw, int Cout, int m,
                          int is_bf16, int vec, cudaStream_t s) {
   if (is_bf16) {
-    if (vec == 8) return launch_bwd<__nv_bfloat16, STRIDE, 8>(h, oy, ox, gate, ct, dh, doy, dox, dgate, B, H, W, Ho, Wo, K, kw, Cout, m, s);
-    if (vec == 1) return launch_bwd<__nv_bfloat16, STRIDE, 1>(h, oy, ox, gate, ct, dh, doy, dox, dgate, B, H, W, Ho, Wo, K, kw, Cout, m, s);
+    if (vec == 8) return launch_bwd<__nv_bfloat16, STRIDE, PADDED, 8>(h, oy, ox, gate, ct, dh, doy, dox, dgate, B, H, W, Ho, Wo, K, kw, Cout, m, s);
+    if (vec == 1) return launch_bwd<__nv_bfloat16, STRIDE, PADDED, 1>(h, oy, ox, gate, ct, dh, doy, dox, dgate, B, H, W, Ho, Wo, K, kw, Cout, m, s);
   } else {
-    if (vec == 4) return launch_bwd<float, STRIDE, 4>(h, oy, ox, gate, ct, dh, doy, dox, dgate, B, H, W, Ho, Wo, K, kw, Cout, m, s);
-    if (vec == 1) return launch_bwd<float, STRIDE, 1>(h, oy, ox, gate, ct, dh, doy, dox, dgate, B, H, W, Ho, Wo, K, kw, Cout, m, s);
+    if (vec == 4) return launch_bwd<float, STRIDE, PADDED, 4>(h, oy, ox, gate, ct, dh, doy, dox, dgate, B, H, W, Ho, Wo, K, kw, Cout, m, s);
+    if (vec == 1) return launch_bwd<float, STRIDE, PADDED, 1>(h, oy, ox, gate, ct, dh, doy, dox, dgate, B, H, W, Ho, Wo, K, kw, Cout, m, s);
   }
   return cudaErrorInvalidValue;
 }
 
-}  // namespace
+// The C entries' checks and dispatch. The unpadded map takes stride 1 or 2
+// and a gate; the padded map stride 1, H = Ho + 2m + 1, W = Wo + 2m + 1,
+// and a gate or none (null: g = 1, and no dgate).
+template <bool PADDED>
+bool bad_args(const void* gate, int B, int H, int W, int Ho, int Wo, int K, int kw, int Cout,
+              int m, int stride, int vec) {
+  if (B <= 0 || H <= 0 || W <= 0 || Ho <= 0 || Wo <= 0 || K <= 0 || kw <= 0 || Cout <= 0 ||
+      m < 0 || vec <= 0 || Cout % vec != 0)
+    return true;
+  if (PADDED) return stride != 1 || H != Ho + 2 * m + 1 || W != Wo + 2 * m + 1;
+  return gate == nullptr || (stride != 1 && stride != 2);
+}
 
-// Plain C entry point, loaded with ctypes. Launches on `stream`, does not
-// synchronise, allocates nothing; returns cudaGetLastError() after the launch
-// (or cudaErrorInvalidValue for arguments the kernel does not take).
-extern "C" int lpi_window_taps_fwd(const void* h, const void* oy, const void* ox,
-                                   const void* gate, void* out, int B, int H, int W,
-                                   int Ho, int Wo, int K, int kw, int Cout, int m,
-                                   int stride, int is_bf16, int vec, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || Ho <= 0 || Wo <= 0 || K <= 0 || kw <= 0 ||
-      Cout <= 0 || m < 0 || Cout % vec != 0)
+template <bool PADDED>
+int fwd_entry(const void* h, const void* oy, const void* ox, const void* gate, void* out, int B,
+              int H, int W, int Ho, int Wo, int K, int kw, int Cout, int m, int stride,
+              int is_bf16, int vec, void* stream) {
+  if (bad_args<PADDED>(gate, B, H, W, Ho, Wo, K, kw, Cout, m, stride, vec))
     return (int)cudaErrorInvalidValue;
   const float* fy = static_cast<const float*>(oy);
   const float* fx = static_cast<const float*>(ox);
   const float* fg = static_cast<const float*>(gate);
   float* fo = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (stride == 1)
-    return (int)dispatch<1>(h, fy, fx, fg, fo, B, H, W, Ho, Wo, K, kw, Cout, m, is_bf16, vec, s);
-  if (stride == 2)
-    return (int)dispatch<2>(h, fy, fx, fg, fo, B, H, W, Ho, Wo, K, kw, Cout, m, is_bf16, vec, s);
-  return (int)cudaErrorInvalidValue;
+  if constexpr (!PADDED) {
+    if (stride == 2)
+      return (int)dispatch<2, false>(h, fy, fx, fg, fo, B, H, W, Ho, Wo, K, kw, Cout, m, is_bf16,
+                                     vec, s);
+  }
+  return (int)dispatch<1, PADDED>(h, fy, fx, fg, fo, B, H, W, Ho, Wo, K, kw, Cout, m, is_bf16,
+                                  vec, s);
 }
 
-// Backward of `lpi_window_taps_fwd`: ct [B, Ho, Wo, Cout] fp32 -> dh (h's
-// shape and type), doy, dox, dgate [B, K, Ho, Wo] fp32. One launch on
-// `stream`, no synchronisation, no allocation; every output element is
-// written, so the outputs need no zero fill.
-extern "C" int lpi_window_taps_bwd(const void* h, const void* oy, const void* ox,
-                                   const void* gate, const void* ct, void* dh, void* doy,
-                                   void* dox, void* dgate, int B, int H, int W, int Ho,
-                                   int Wo, int K, int kw, int Cout, int m, int stride,
-                                   int is_bf16, int vec, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || Ho <= 0 || Wo <= 0 || K <= 0 || kw <= 0 ||
-      Cout <= 0 || m < 0 || Cout % vec != 0)
+template <bool PADDED>
+int bwd_entry(const void* h, const void* oy, const void* ox, const void* gate, const void* ct,
+              void* dh, void* doy, void* dox, void* dgate, int B, int H, int W, int Ho, int Wo,
+              int K, int kw, int Cout, int m, int stride, int is_bf16, int vec, void* stream) {
+  if (bad_args<PADDED>(gate, B, H, W, Ho, Wo, K, kw, Cout, m, stride, vec) ||
+      (gate == nullptr) != (dgate == nullptr))
     return (int)cudaErrorInvalidValue;
   const float* fy = static_cast<const float*>(oy);
   const float* fx = static_cast<const float*>(ox);
@@ -487,11 +527,62 @@ extern "C" int lpi_window_taps_bwd(const void* h, const void* oy, const void* ox
   float* gx = static_cast<float*>(dox);
   float* gg = static_cast<float*>(dgate);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (stride == 1)
-    return (int)dispatch_bwd<1>(h, fy, fx, fg, fc, dh, gy, gx, gg, B, H, W, Ho, Wo, K, kw,
-                                Cout, m, is_bf16, vec, s);
-  if (stride == 2)
-    return (int)dispatch_bwd<2>(h, fy, fx, fg, fc, dh, gy, gx, gg, B, H, W, Ho, Wo, K, kw,
-                                Cout, m, is_bf16, vec, s);
-  return (int)cudaErrorInvalidValue;
+  if constexpr (!PADDED) {
+    if (stride == 2)
+      return (int)dispatch_bwd<2, false>(h, fy, fx, fg, fc, dh, gy, gx, gg, B, H, W, Ho, Wo, K,
+                                         kw, Cout, m, is_bf16, vec, s);
+  }
+  return (int)dispatch_bwd<1, PADDED>(h, fy, fx, fg, fc, dh, gy, gx, gg, B, H, W, Ho, Wo, K, kw,
+                                      Cout, m, is_bf16, vec, s);
+}
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes. Each launches on `stream`, does
+// not synchronise, allocates nothing, and returns cudaGetLastError() after
+// the launch (or cudaErrorInvalidValue for arguments the kernel does not
+// take).
+//
+// The unpadded map h [B, H, W, K*Cout] at stride 1 or 2 (rows 1f and 2f):
+// oy, ox, gate [B, K, Ho, Wo] -> out [B, Ho, Wo, Cout] fp32.
+extern "C" int lpi_window_taps_fwd(const void* h, const void* oy, const void* ox,
+                                   const void* gate, void* out, int B, int H, int W,
+                                   int Ho, int Wo, int K, int kw, int Cout, int m,
+                                   int stride, int is_bf16, int vec, void* stream) {
+  return fwd_entry<false>(h, oy, ox, gate, out, B, H, W, Ho, Wo, K, kw, Cout, m, stride, is_bf16,
+                          vec, stream);
+}
+
+// Backward of `lpi_window_taps_fwd`: ct [B, Ho, Wo, Cout] fp32 -> dh (h's
+// shape and type), doy, dox, dgate [B, K, Ho, Wo] fp32. One launch; every
+// output element is written, so the outputs need no zero fill.
+extern "C" int lpi_window_taps_bwd(const void* h, const void* oy, const void* ox,
+                                   const void* gate, const void* ct, void* dh, void* doy,
+                                   void* dox, void* dgate, int B, int H, int W, int Ho,
+                                   int Wo, int K, int kw, int Cout, int m, int stride,
+                                   int is_bf16, int vec, void* stream) {
+  return bwd_entry<false>(h, oy, ox, gate, ct, dh, doy, dox, dgate, B, H, W, Ho, Wo, K, kw, Cout,
+                          m, stride, is_bf16, vec, stream);
+}
+
+// The pre-shifted, pre-padded map hp [B, Ho+2m+1, Wo+2m+1, K*Cout] (rows 3
+// and 4; H, W are its padded size, stride must be 1): the same arguments as
+// `lpi_window_taps_fwd`, with `kw` unused and `gate` null for row 4.
+extern "C" int lpi_window_padded_fwd(const void* hp, const void* oy, const void* ox,
+                                     const void* gate, void* out, int B, int H, int W,
+                                     int Ho, int Wo, int K, int kw, int Cout, int m,
+                                     int stride, int is_bf16, int vec, void* stream) {
+  return fwd_entry<true>(hp, oy, ox, gate, out, B, H, W, Ho, Wo, K, kw, Cout, m, stride, is_bf16,
+                         vec, stream);
+}
+
+// Backward of `lpi_window_padded_fwd`: d hp over the whole padded map, pad
+// ring included; `gate` and `dgate` both null for row 4.
+extern "C" int lpi_window_padded_bwd(const void* hp, const void* oy, const void* ox,
+                                     const void* gate, const void* ct, void* dhp, void* doy,
+                                     void* dox, void* dgate, int B, int H, int W, int Ho,
+                                     int Wo, int K, int kw, int Cout, int m, int stride,
+                                     int is_bf16, int vec, void* stream) {
+  return bwd_entry<true>(hp, oy, ox, gate, ct, dhp, doy, dox, dgate, B, H, W, Ho, Wo, K, kw,
+                         Cout, m, stride, is_bf16, vec, stream);
 }

@@ -141,6 +141,97 @@ def test_strided_cotangent_goes_through_the_function(card):
     assert torch.isfinite(h.grad).all() and h.grad.abs().sum() > 0
 
 
+def _padded_inputs(rng, B, Ho, Wo, Cout, K, m=3):
+    """Pre-padded map [B, Ho+2m+1, Wo+2m+1, K*Cout], offsets and gate as
+    `_inputs` makes them, and a cotangent, on the card."""
+    _, oy, ox, g = _inputs(rng, Ho, Wo, 1, 1, m=m, K=K, B=B)
+    hp = rng.randn(B, Ho + 2 * m + 1, Wo + 2 * m + 1, K * Cout).astype(np.float32)
+    ct = rng.randn(B, Ho, Wo, Cout).astype(np.float32)
+    return torch.from_numpy(hp).cuda(), oy, ox, g, torch.from_numpy(ct).cuda()
+
+
+def _padded_case(single, dtype, hp, oy, ox, g, ct):
+    """(forward, backward, their plain versions, forward args, backward
+    args) of row 4 (`single`: one map, no gate) or row 3."""
+    if single:
+        args = (hp, oy[:, 0].contiguous(), ox[:, 0].contiguous())
+        return (tdk.window_accumulate, tdk.window_accumulate_backward,
+                tdk.window_accumulate_reference, tdk.window_accumulate_backward_reference,
+                (*args, 3), (*args, ct, 3))
+    args = (hp.to(dtype), oy, ox, g)
+    return (tdk.window_accumulate_taps, tdk.window_accumulate_taps_backward,
+            tdk.window_accumulate_taps_reference, tdk.window_accumulate_taps_backward_reference,
+            (*args, 3, 9), (*args, ct, 3, 9))
+
+
+PADDED_CASES = [(False, torch.float32), (False, torch.bfloat16), (True, torch.float32)]
+
+
+@pytest.mark.parametrize("single,dtype", PADDED_CASES)
+@pytest.mark.parametrize("Cout", [256, 12])
+def test_padded_kernel_matches_plain(card, single, dtype, Cout):
+    """Rows 3 (gated K-tap sum over the pre-padded map, fp32 or bf16) and 4
+    (one fp32 map, no gate): forward within 1e-5, one launch per call."""
+    hp, oy, ox, g, ct = _padded_inputs(np.random.RandomState(11), 2, 13, 10, Cout,
+                                       1 if single else 9)
+    fwd, _, ref, _, args, _ = _padded_case(single, dtype, hp, oy, ox, g, ct)
+    before = fwd.launches
+    got = fwd(*args)
+    torch.cuda.synchronize()
+    assert fwd.launches == before + 1
+    assert _within(got, ref(*args))
+
+
+@pytest.mark.parametrize("single,dtype", PADDED_CASES)
+@pytest.mark.parametrize("Cout", [256, 12])
+def test_padded_backward_kernel_matches_plain(card, single, dtype, Cout):
+    """d hp over the whole padded map, pad ring included, within 1e-5 of the
+    plain fp32 sum (plus half a bf16 step for a bf16 map); d oy, d ox (and d
+    gate) within 1e-5; one launch per call; two calls equal bit for bit."""
+    hp, oy, ox, g, ct = _padded_inputs(np.random.RandomState(12), 2, 11, 12, Cout,
+                                       1 if single else 9)
+    _, bwd, _, ref, _, args = _padded_case(single, dtype, hp, oy, ox, g, ct)
+    before = bwd.launches
+    got = bwd(*args)
+    again = bwd(*args)
+    torch.cuda.synchronize()
+    assert bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert got[0].dtype == dtype and got[0].shape == args[0].shape
+    want = ref(args[0].float(), *args[1:])
+    assert len(got) == len(want) == (3 if single else 4)
+    for a, b in zip(got, want):
+        bar = 1e-5 * max(1.0, b.abs().max().item())
+        if a.dtype == torch.bfloat16:
+            bar = bar + 2.0 ** -8 * b.abs()
+        assert ((a.float() - b).abs() <= bar).all()
+
+
+def test_padded_functions_card_match_cpu(card):
+    """Gradients through `window_taps_padded` and `window_single` on the card
+    equal those on the CPU within 1e-5."""
+    hp, oy, ox, g, ct = _padded_inputs(np.random.RandomState(13), 1, 6, 7, 8, 9)
+    grads = {}
+    for device in ("cpu", "cuda"):
+        ins = [t.detach().to(device).requires_grad_(True) for t in (hp, oy, ox, g)]
+        grads[device] = torch.autograd.grad(tdk.window_taps_padded(*ins, 3, 9), ins, ct.to(device))
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert _within(a.cpu(), b)
+    single = hp[..., :8].contiguous()
+    for device in ("cpu", "cuda"):
+        ins = [t.detach().to(device).requires_grad_(True)
+               for t in (single, oy[:, 0], ox[:, 0])]
+        grads[device] = torch.autograd.grad(tdk.window_single(*ins, 3), ins, ct.to(device))
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert _within(a.cpu(), b)
+
+
+def test_single_map_refuses_bf16_on_the_card(card):
+    hp, oy, ox, _, _ = _padded_inputs(np.random.RandomState(14), 1, 4, 4, 8, 1)
+    with pytest.raises(TypeError):
+        tdk.window_accumulate(hp.to(torch.bfloat16), oy[:, 0], ox[:, 0], 3)
+
+
 def _fused_inputs(rng, B, H, W, C, Cout, stride, m=3, K=9):
     """Features, offsets (with exact integers and the +-m edges), gate
     (with exact 0 and 1 entries), weights and a cotangent, on the card."""
