@@ -10,7 +10,9 @@ non-zero):
    every shape the 448 px grounding predictor (batch 1) and train step
    (batch 4) give it, in fp32 and bf16, and time both (CUDA graphs, median
    of 20);
-   2b. the same for the two backward kernels at the train step's shapes;
+   2b. the same for the two backward kernels at the train step's shapes,
+       with one launch per call, two calls equal bit for bit and each
+       level's share of the bound;
 3. drive the full-width GLIP-T + LPI grounding predictor
    (`lpi_tpu_torch.serve.predictor.GroundingPredictor`, `GroundingConfig()`
    defaults, seeded random weights and task keys) through a few requests,
@@ -187,7 +189,8 @@ def check_backward_kernels(dk, gen, records):
     fp32 and bf16 maps. d oy, d ox, d gate and fp32 d h_all within 1e-5 x
     max(1, max |plain|); a bf16 d h_all is held to the plain fp32 sum over
     the same bf16 values, within that plus half a bf16 step (2^-8 |plain|),
-    since the kernel rounds its fp32 sum to bf16 once."""
+    since the kernel rounds its fp32 sum to bf16 once. One launch per call,
+    and a second call gives the same bits (no atomics, a fixed order)."""
     specs = (("window_accumulate_taps_inpad_backward", 1, INPAD_SHAPES,
               dk.window_accumulate_taps_inpad_backward,
               dk.window_accumulate_taps_inpad_backward_reference),
@@ -200,7 +203,9 @@ def check_backward_kernels(dk, gen, records):
             for side, per_tower in shapes.items():
                 h, oy, ox, g, ct = kernel_inputs(gen, side, stride, dtype, TRAIN_BATCH)
                 args = (h, oy, ox, g, ct, M, K, KW)
-                got = fn(*args)
+                got = _launched_once(fn, *args)
+                if not all(torch.equal(a, b) for a, b in zip(got, _launched_once(fn, *args))):
+                    raise AssertionError(f"{name} {dtype} side {side}: two calls differ")
                 want = ref_fn(h.float(), oy, ox, g, ct, M, K, KW)
                 torch.cuda.synchronize()
                 if got[0].dtype != dtype:
@@ -217,7 +222,8 @@ def check_backward_kernels(dk, gen, records):
                 bms, kind = window_bound_ms(h, oy, 256, backward=True)
                 log(f"kernel {name} {str(dtype)[6:]} b{TRAIN_BATCH} in {side}x{side}x{K * 256} "
                     f"stride {stride}: {ms:.6f} ms, plain {plain:.6f} ms, bound {bms:.6f} ms "
-                    f"({kind}), max abs err {', '.join(errs)}")
+                    f"({kind}; {100 * bms / ms:.1f}% of it), max abs err {', '.join(errs)}; "
+                    f"two calls equal bit for bit")
                 if dtype == torch.bfloat16:
                     n = per_tower * TOWERS
                     rec["ms"] += n * ms

@@ -56,32 +56,53 @@
 //
 // with dhat(o, d) = -sign(o - d) where |o - d| < 1, else 0 (so an integer
 // offset gives 0 from every displacement). One launch runs two kinds of
-// blocks:
+// block, the d h blocks first:
 //
-// * dh, as a GATHER (the first blocks): one thread owns VEC channels of one
-//   (input pixel, tap). It visits the output pixels that can reach its pixel
-//   (8 x 8 at stride 1, 4 x 4 at stride 2, since dy, dx lie in [-m, m+1])
-//   and adds g * hat * hat * ct where the hat weights are non-zero, i.e.
-//   where floor(o) or floor(o)+1 lands on its pixel. dh is written once, in
-//   h_all's dtype, after an fp32 sum: no atomics, no zero-fill pass, and the
-//   result is deterministic. The hat weights use the forward's float
-//   expression, so the same corners carry the same weights.
-// * doy, dox, dgate (the remaining blocks): one warp per (output pixel,
-//   tap). Lanes stride over the Cout channels VEC at a time (one warp spans
-//   256 bf16 channels in one pass, 256 fp32 channels in two), form the four
-//   corner dot products s, and one warp-shuffle sum per output reduces them.
-//   The corners are skipped only outside the per-axis support |o - d| < 1
-//   (which hat and dhat share), the window and the map, never on the gate:
-//   dgate does not carry g.
+// * d h, one warp per item: a strip of kStrip = 4 vertically neighbouring
+//   input pixels and one tap, lanes over the channels (8 bf16 or 4 fp32 each:
+//   16-byte loads and stores; 256 channels in one pass for bf16, two for
+//   fp32). The output pixels whose window can reach the strip, about
+//   (2m+1+kStrip)/S rows by (2m+2)/S columns (88 at stride 1 and 20 to 24 at
+//   stride 2 for m = 3), are its candidates: lane j tests candidate j, 32 at
+//   a time, with the hat sum's own float expressions, for every pixel of the
+//   strip, and a ballot gives the hits in (y, x) order. Per hit the warp
+//   loads the output's cotangent row once and adds g * hat * hat * ct to the
+//   channels of each pixel it reaches, four hits at a time, with fused
+//   multiply-adds in that order: per pixel, the same terms in the same order
+//   as a serial gather over the output positions (row, then column), so an
+//   fp32 d h carries that gather's bits. d h is written once, in h_all's dtype,
+//   after the fp32 sum: no atomics, no zero fill, and two calls give equal
+//   bits. The strip shares an output's cotangent row between the rows of
+//   its corners, and neighbouring warps (the strips of one row of strips
+//   and one tap) share it between their columns through L1.
+// * d oy, d ox, d gate, one warp per item of one output pixel and
+//   off_taps taps (3 for fp32 maps, 1 for bf16): lanes stride over the Cout
+//   channels VEC at a time, form the four corner dot products s of each tap
+//   with all the item's corner loads in flight, and one warp-shuffle sum per
+//   result ends them (the sums of a warp per (pixel, tap), in its order, so
+//   the results carry its bits). The corners are skipped only outside the
+//   per-axis support |o - d| < 1 (which hat and dhat share), the window and
+//   the map, never on the gate: dgate does not carry g. Both kinds share one
+//   register budget (at most 128 a thread, two blocks an SM, set by the d h
+//   strips); three fp32 taps per warp keep more corner loads in flight at
+//   two blocks an SM, while three bf16 taps (8 channels a lane) spill.
+//   Neither kind uses shared memory (0 bytes a block):
+//   the rows each warp re-reads, its hits' cotangent rows and its corners'
+//   h rows, come through L1 and the 50 MB L2.
 //
 // Bound on an H100: bytes. The floor reads h_all, ct and the three offset
 // maps once and writes dh_all and the three gradient maps once: at P3 of the
 // 448 px train step (4 x 56 x 56, K*Cout = 2304, bf16) that is 2 x 58 MB +
 // 12.8 MB + 2 x 1.4 MB, about 39 us. The arithmetic (4 corners x 2 flops per
-// channel for s, 64 or 16 weight tests per dh group) is a few us at the fp32
-// rate. The gather re-reads each offset triple and ct vector from L1/L2 for
-// every input pixel that a corner reaches; tiling ct in shared memory is
-// later work.
+// channel for s and for d h) is a few us at the fp32 rate. What the design
+// pays above the floor: each hit reads a 1 KB fp32 cotangent row (about 36
+// hits per input pixel over the nine taps) from L1 or L2 instead of once,
+// and the offset half reads each h corner (4 per output and tap) from L2.
+// A gather whose threads each tested the 64 candidates of one (pixel, tap)
+// one after another, with dependent loads, spent 80% of its launch in the d
+// h half; tiles of the cotangent staged in shared memory, 32 or 64 channels
+// per block, were measured slower than this design (each item's tests were
+// repeated per channel chunk). PERF.md has the measurements.
 //
 // ---------------------------------------------------------------------------
 // The pre-padded sums (`lpi_window_padded_fwd`, `lpi_window_padded_bwd`, the
@@ -94,7 +115,7 @@
 //   * `window_accumulate` (`_fwd_kernel`, VJP `_bwd_kernel`): the single map
 //     hp [B, Ho+2m+1, Wo+2m+1, C] fp32, no gate (K = 1, a null gate is g = 1,
 //     and the backward writes no dgate).
-// Same kernels, same corner rule, same gather and warp reductions as above,
+// Same kernels, same corner rule, same d h strips and offset warps as above,
 // at stride 1; only the row and column shift of each tap differs. d hp covers
 // every position of the padded map, the pad ring included, as the JAX VJP
 // returns it. A bf16 d hp is summed in fp32 and rounded once (the TPU kernel
@@ -242,6 +263,19 @@ cudaError_t dispatch(const void* h, const float* oy, const float* ox, const floa
 
 constexpr int kBwdThreads = 256;
 constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kStrip = 4;    // input pixels of one d h item, one above the other
+constexpr unsigned kFull = 0xffffffffu;
+
+// Taps of one offset item: as many corner loads in flight as 128 registers
+// hold. Three taps at 4 fp32 channels a lane (or 1); at 8 bf16 channels a
+// lane, three taps spill 320 bytes a thread and run 1.6x slower than one.
+template <int VEC>
+constexpr int off_taps = VEC >= 8 ? 1 : 3;
+
+// What both kinds of warp read, planned once per launch.
+struct BwdGeom {
+  int B, H, W, Ho, Wo, K, kw, Cout, m;
+};
 
 __device__ __forceinline__ void from_float(float v, float* p) { *p = v; }
 __device__ __forceinline__ void from_float(float v, __nv_bfloat16* p) { *p = __float2bfloat16(v); }
@@ -280,172 +314,269 @@ __device__ __forceinline__ int floor_div(int a, int s) {
   return a >= 0 ? a / s : -((-a + s - 1) / s);
 }
 
+__device__ __forceinline__ int ceil_div(int a, int s) { return -floor_div(-a, s); }
+
+// d h of one item: a strip of kStrip vertically neighbouring input pixels
+// (rows iy0 ..) and one tap; one warp, lanes over the channels (VEC each,
+// 32 x VEC channels per pass). The output pixels whose window can reach a
+// pixel of the strip, (2m+1+kStrip)/S rows by (2m+2)/S columns, are its
+// candidates: lane j tests candidate j (32 at a time) with the hat sum's own
+// expressions, for every pixel of the strip, and a ballot gives the hits in
+// (y, x) order. The warp loads each hit's cotangent row once and adds g *
+// hat * hat * ct to the channels of each pixel it reaches, four hits at a
+// time. Item order puts the strips of one row and tap in neighbouring warps,
+// which share the cotangent rows of their corners through L1. H x W is the
+// map's own size (the padded size in the PADDED mode, whose d hp covers the
+// pad ring too).
+template <typename T, int STRIDE, bool PADDED, int VEC>
+__device__ __forceinline__ void dh_strip(const float* __restrict__ oy,
+                                         const float* __restrict__ ox,
+                                         const float* __restrict__ gate,
+                                         const float* __restrict__ ct, T* __restrict__ dh,
+                                         const BwdGeom& g, long long item, int lane) {
+  const int strips = (g.H + kStrip - 1) / kStrip;
+  if (item >= (long long)g.B * g.K * strips * g.W) return;  // uniform across the warp
+  const int ix = (int)(item % g.W);
+  long long r = item / g.W;
+  const int iy0 = (int)(r % strips) * kStrip;
+  r /= strips;
+  const int k = (int)(r % g.K);
+  const long long b = r / g.K;
+  const int sy = tap_shift<PADDED>(k / g.kw, g.m), sx = tap_shift<PADDED>(k % g.kw, g.m);
+  const long long plane = (long long)g.Ho * g.Wo;
+  const long long kplane = (b * g.K + k) * plane;
+  const float* oyk = oy + kplane;
+  const float* oxk = ox + kplane;
+  const float* gk = gate ? gate + kplane : nullptr;
+  const float* ctb = ct + b * plane * g.Cout;
+  const long long KC = (long long)g.K * g.Cout;
+  T* dhp = dh + ((b * g.H + iy0) * g.W + ix) * KC + (long long)k * g.Cout;
+  const float lo = (float)(-g.m), hi = (float)(g.m + 1);
+  // candidate rows y: S*y + sy + d on a strip row for d in [-m, m+1]
+  const int yf = ceil_div(iy0 - sy - g.m - 1, STRIDE);
+  const int ncy = floor_div(iy0 + kStrip - 1 - sy + g.m, STRIDE) - yf + 1;
+  const int xf = ceil_div(ix - sx - g.m - 1, STRIDE), ncx = (2 * g.m + 2) / STRIDE;
+  const int nc = ncy * ncx;
+  // row and column of the lane's first two candidates, j = lane and lane + 32
+  const int r0 = lane / ncx, r1 = (lane + 32) / ncx;
+  const int q0 = lane - r0 * ncx, q1 = lane + 32 - r1 * ncx;
+
+  for (int c0 = 0; c0 < g.Cout; c0 += 32 * VEC) {
+    const int c = c0 + lane * VEC;
+    const bool live = c < g.Cout;
+    float acc[kStrip][VEC];
+#pragma unroll
+    for (int p = 0; p < kStrip; ++p)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[p][i] = 0.f;
+    for (int jb = 0; jb < nc; jb += 32) {
+      const int j = jb + lane;
+      int jr = r0, jq = q0;
+      if (jb == 32) {
+        jr = r1;
+        jq = q1;
+      } else if (jb > 32) {
+        jr = j / ncx;
+        jq = j - jr * ncx;
+      }
+      const int y = yf + jr, x = xf + jq;
+      float cf[kStrip];
+#pragma unroll
+      for (int p = 0; p < kStrip; ++p) cf[p] = 0.f;
+      int o = 0;
+      if (j < nc && y >= 0 && y < g.Ho && x >= 0 && x < g.Wo) {
+        o = y * g.Wo + x;
+        const float dx = (float)(ix - STRIDE * x - sx);
+        const float wx = fmaxf(0.f, 1.f - fabsf(__ldg(oxk + o) - dx));
+        const float o_y = __ldg(oyk + o);
+        const float gg = gk ? __ldg(gk + o) : 1.f;
+#pragma unroll
+        for (int p = 0; p < kStrip; ++p) {
+          const float dy = (float)(iy0 + p - STRIDE * y - sy);
+          const float wy = fmaxf(0.f, 1.f - fabsf(o_y - dy));
+          if (dy >= lo && dy <= hi && iy0 + p < g.H && wy != 0.f && wx != 0.f)
+            cf[p] = gg * wy * wx;
+        }
+      }
+      bool any = false;
+#pragma unroll
+      for (int p = 0; p < kStrip; ++p) any = any || cf[p] != 0.f;
+      unsigned hits = __ballot_sync(kFull, any);
+      while (hits) {
+        int src[4];
+        bool on[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          on[u] = hits != 0u;
+          src[u] = on[u] ? __ffs(hits) - 1 : 0;
+          hits &= hits - 1u;
+        }
+        float w[4][kStrip], v[4][VEC];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+#pragma unroll
+          for (int p = 0; p < kStrip; ++p) w[u][p] = __shfl_sync(kFull, cf[p], src[u]);
+          const int ou = __shfl_sync(kFull, o, src[u]);
+          if (on[u] && live) load_ct<VEC>(ctb + (long long)ou * g.Cout + c, v[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int p = 0; p < kStrip; ++p)
+            if (on[u] && live && w[u][p] != 0.f)
+#pragma unroll
+              for (int i = 0; i < VEC; ++i) acc[p][i] = fmaf(w[u][p], v[u][i], acc[p][i]);
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < kStrip; ++p)
+      if (live && iy0 + p < g.H) store_vec<T, VEC>(dhp + p * g.W * KC + c, acc[p]);
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
   return v;
 }
 
-// dh gather: thread `t` owns VEC channels of one (input pixel, tap). H x W
-// is the map's own size (the padded size in the PADDED mode, whose d hp
-// covers the pad ring too).
-template <typename T, int STRIDE, bool PADDED, int VEC>
-__device__ __forceinline__ void dh_gather(
-    const float* __restrict__ oy, const float* __restrict__ ox,
-    const float* __restrict__ gate, const float* __restrict__ ct, T* __restrict__ dh,
-    int H, int W, int Ho, int Wo, int K, int kw, int Cout, int m, long long t,
-    long long total) {
-  if (t >= total) return;
-  const int KC = K * Cout;
-  const int groups = KC / VEC;
-  const int c0 = (int)(t % groups) * VEC;
-  const long long pix = t / groups;
-  const int ix = (int)(pix % W);
-  const long long rest = pix / W;
-  const int iy = (int)(rest % H);
-  const long long b = rest / H;
-  const int k = c0 / Cout;
-  const int c = c0 - k * Cout;
-  const int sy = tap_shift<PADDED>(k / kw, m), sx = tap_shift<PADDED>(k % kw, m);
-  const long long plane = (long long)Ho * Wo;
-  const float* oyk = oy + (b * K + k) * plane;
-  const float* oxk = ox + (b * K + k) * plane;
-  const float* gk = gate ? gate + (b * K + k) * plane : nullptr;
-  const float* ctb = ct + b * plane * Cout + c;
-  // output rows whose displacement dy = iy - S*y - sy lies in [-m, m+1]
-  const int ylo = max(0, -floor_div(-(iy - sy - m - 1), STRIDE));
-  const int yhi = min(Ho - 1, floor_div(iy - sy + m, STRIDE));
-  const int xlo = max(0, -floor_div(-(ix - sx - m - 1), STRIDE));
-  const int xhi = min(Wo - 1, floor_div(ix - sx + m, STRIDE));
-
-  float acc[VEC];
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-
-  for (int y = ylo; y <= yhi; ++y) {
-    const float dy = (float)(iy - STRIDE * y - sy);
-    for (int x = xlo; x <= xhi; ++x) {
-      const long long o = (long long)y * Wo + x;
-      const float wy = fmaxf(0.f, 1.f - fabsf(__ldg(oyk + o) - dy));
-      if (wy == 0.f) continue;
-      const float dx = (float)(ix - STRIDE * x - sx);
-      const float wx = fmaxf(0.f, 1.f - fabsf(__ldg(oxk + o) - dx));
-      if (wx == 0.f) continue;
-      const float cf = (gk ? __ldg(gk + o) : 1.f) * wy * wx;
-      if (cf == 0.f) continue;
-      float v[VEC];
-      load_ct<VEC>(ctb + o * Cout, v);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[i] += cf * v[i];
-    }
-  }
-  store_vec<T, VEC>(dh + pix * KC + c0, acc);
-}
-
-// doy, dox, dgate: one warp per (output pixel, tap) item. Without a gate
-// (null `gate`, g = 1) dgate is null and not written.
+// d oy, d ox, d gate: one warp per item of one output pixel and kTaps =
+// off_taps<VEC> taps (k0 ..). Lanes stride over the Cout channels VEC at a time and form
+// the four corner dot products s of every tap of the item, with all its
+// corner loads in flight at once; one warp-shuffle sum per result ends
+// them (the sums of a warp per (pixel, tap), in its order, so the results
+// carry its bits). The corners are skipped only outside the per-axis support
+// |o - d| < 1 (which hat and dhat share), the window and the map, never on
+// the gate: dgate does not carry g. Without a gate (null `gate`, g = 1)
+// dgate is null and not written.
 template <typename T, int STRIDE, bool PADDED, int VEC>
 __device__ __forceinline__ void offset_grads(
     const T* __restrict__ h, const float* __restrict__ oy, const float* __restrict__ ox,
     const float* __restrict__ gate, const float* __restrict__ ct, float* __restrict__ doy,
-    float* __restrict__ dox, float* __restrict__ dgate, int H, int W, int Ho, int Wo,
-    int K, int kw, int Cout, int m, long long item, long long n_items, int lane) {
-  if (item >= n_items) return;  // uniform across the warp
-  const int k = (int)(item % K);
-  const long long pix = item / K;
-  const int xo = (int)(pix % Wo);
-  const long long rest = pix / Wo;
-  const int yo = (int)(rest % Ho);
-  const long long b = rest / Ho;
-  const long long KC = (long long)K * Cout;
-  const long long plane = (long long)Ho * Wo;
-  const long long oidx = (b * K + k) * plane + (long long)yo * Wo + xo;
-  const float o_y = __ldg(oy + oidx), o_x = __ldg(ox + oidx);
-  const float g = gate ? __ldg(gate + oidx) : 1.f;
-  const float lo = (float)(-m), hi = (float)(m + 1);
-  const int by = STRIDE * yo + tap_shift<PADDED>(k / kw, m);
-  const int bx = STRIDE * xo + tap_shift<PADDED>(k % kw, m);
+    float* __restrict__ dox, float* __restrict__ dgate, const BwdGeom& g, long long item,
+    int lane) {
+  constexpr int kTaps = off_taps<VEC>;
+  const int groups = (g.K + kTaps - 1) / kTaps;
+  if (item >= (long long)g.B * g.Ho * g.Wo * groups) return;  // uniform across the warp
+  const int k0 = (int)(item % groups) * kTaps;
+  const long long pix = item / groups;
+  const int xo = (int)(pix % g.Wo);
+  const long long rest = pix / g.Wo;
+  const int yo = (int)(rest % g.Ho);
+  const long long b = rest / g.Ho;
+  const long long KC = (long long)g.K * g.Cout;
+  const long long plane = (long long)g.Ho * g.Wo;
+  const float lo = (float)(-g.m), hi = (float)(g.m + 1);
 
-  float wy[2], dwy[2], wx[2], dwx[2];
-  int ry[2], rx[2];
-  bool vy[2], vx[2];
+  long long oidx[kTaps];
+  float gg[kTaps], wy[kTaps][2], dwy[kTaps][2], wx[kTaps][2], dwx[kTaps][2];
+  long long corner[kTaps][2][2];  // element offset of each corner's row in h
+  bool on[kTaps][2][2];
 #pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    const float dy = floorf(o_y) + (float)a;
-    const float ty = o_y - dy;
-    ry[a] = by + (int)dy;
-    vy[a] = dy >= lo && dy <= hi && ry[a] >= 0 && ry[a] < H && fabsf(ty) < 1.f;
-    wy[a] = fmaxf(0.f, 1.f - fabsf(ty));
-    dwy[a] = ty > 0.f ? -1.f : (ty < 0.f ? 1.f : 0.f);
-    const float dx = floorf(o_x) + (float)a;
-    const float tx = o_x - dx;
-    rx[a] = bx + (int)dx;
-    vx[a] = dx >= lo && dx <= hi && rx[a] >= 0 && rx[a] < W && fabsf(tx) < 1.f;
-    wx[a] = fmaxf(0.f, 1.f - fabsf(tx));
-    dwx[a] = tx > 0.f ? -1.f : (tx < 0.f ? 1.f : 0.f);
-  }
-
-  const T* hk = h + b * H * W * KC + (long long)k * Cout;
-  const float* ctp = ct + pix * Cout;
-  float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-  for (int c = lane * VEC; c < Cout; c += 32 * VEC) {
-    float cv[VEC];
-    load_ct<VEC>(ctp + c, cv);
+  for (int t = 0; t < kTaps; ++t) {
+    const int k = k0 + t;
+    oidx[t] = (b * g.K + k) * plane + (long long)yo * g.Wo + xo;
+    const bool tap = k < g.K;
+    const float o_y = tap ? __ldg(oy + oidx[t]) : 0.f, o_x = tap ? __ldg(ox + oidx[t]) : 0.f;
+    gg[t] = tap && gate ? __ldg(gate + oidx[t]) : 1.f;
+    const int by = STRIDE * yo + tap_shift<PADDED>(k / g.kw, g.m);
+    const int bx = STRIDE * xo + tap_shift<PADDED>(k % g.kw, g.m);
+    int ry[2], rx[2];
+    bool vy[2], vx[2];
 #pragma unroll
     for (int a = 0; a < 2; ++a) {
-      if (!vy[a]) continue;
+      const float dy = floorf(o_y) + (float)a;
+      const float ty = o_y - dy;
+      ry[a] = by + (int)dy;
+      vy[a] = tap && dy >= lo && dy <= hi && ry[a] >= 0 && ry[a] < g.H && fabsf(ty) < 1.f;
+      wy[t][a] = fmaxf(0.f, 1.f - fabsf(ty));
+      dwy[t][a] = ty > 0.f ? -1.f : (ty < 0.f ? 1.f : 0.f);
+      const float dx = floorf(o_x) + (float)a;
+      const float tx = o_x - dx;
+      rx[a] = bx + (int)dx;
+      vx[a] = tap && dx >= lo && dx <= hi && rx[a] >= 0 && rx[a] < g.W && fabsf(tx) < 1.f;
+      wx[t][a] = fmaxf(0.f, 1.f - fabsf(tx));
+      dwx[t][a] = tx > 0.f ? -1.f : (tx < 0.f ? 1.f : 0.f);
+    }
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
 #pragma unroll
       for (int bb = 0; bb < 2; ++bb) {
-        if (!vx[bb]) continue;
-        float hv[VEC];
-        load_vec<T, VEC>(hk + ((long long)ry[a] * W + rx[bb]) * KC + c, hv);
-        float p = 0.f;
+        on[t][a][bb] = vy[a] && vx[bb];
+        corner[t][a][bb] = (b * g.H * g.W + (long long)ry[a] * g.W + rx[bb]) * KC +
+                           (long long)k * g.Cout;
+      }
+  }
+
+  const float* ctp = ct + pix * g.Cout;
+  float s[kTaps][2][2] = {};
+  for (int c = lane * VEC; c < g.Cout; c += 32 * VEC) {
+    float cv[VEC];
+    load_ct<VEC>(ctp + c, cv);
+    float hv[kTaps][2][2][VEC];
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) p += cv[i] * hv[i];
-        s[a][bb] += p;
+    for (int t = 0; t < kTaps; ++t)
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int bb = 0; bb < 2; ++bb)
+          if (on[t][a][bb]) load_vec<T, VEC>(h + corner[t][a][bb] + c, hv[t][a][bb]);
+#pragma unroll
+    for (int t = 0; t < kTaps; ++t)
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int bb = 0; bb < 2; ++bb) {
+          if (!on[t][a][bb]) continue;
+          float d = 0.f;
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) d += cv[i] * hv[t][a][bb][i];
+          s[t][a][bb] += d;
+        }
+  }
+#pragma unroll
+  for (int t = 0; t < kTaps; ++t) {
+    if (k0 + t >= g.K) continue;  // uniform across the warp
+    float pdy = 0.f, pdx = 0.f, pdg = 0.f;
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+#pragma unroll
+      for (int bb = 0; bb < 2; ++bb) {
+        if (!on[t][a][bb]) continue;
+        pdy += gg[t] * dwy[t][a] * wx[t][bb] * s[t][a][bb];
+        pdx += gg[t] * wy[t][a] * dwx[t][bb] * s[t][a][bb];
+        pdg += wy[t][a] * wx[t][bb] * s[t][a][bb];
       }
     }
-  }
-  float pdy = 0.f, pdx = 0.f, pdg = 0.f;
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-#pragma unroll
-    for (int bb = 0; bb < 2; ++bb) {
-      if (!(vy[a] && vx[bb])) continue;
-      pdy += g * dwy[a] * wx[bb] * s[a][bb];
-      pdx += g * wy[a] * dwx[bb] * s[a][bb];
-      pdg += wy[a] * wx[bb] * s[a][bb];
+    pdy = warp_sum(pdy);
+    pdx = warp_sum(pdx);
+    pdg = warp_sum(pdg);
+    if (lane == 0) {
+      doy[oidx[t]] = pdy;
+      dox[oidx[t]] = pdx;
+      if (dgate) dgate[oidx[t]] = pdg;
     }
-  }
-  pdy = warp_sum(pdy);
-  pdx = warp_sum(pdx);
-  pdg = warp_sum(pdg);
-  if (lane == 0) {
-    doy[oidx] = pdy;
-    dox[oidx] = pdx;
-    if (dgate) dgate[oidx] = pdg;
   }
 }
 
-// Blocks [0, dh_blocks) gather dh; the rest compute doy, dox and dgate.
+// One launch, two kinds of block: `dh_blocks` blocks of kBwdWarps d h
+// strips, then blocks of kBwdWarps offset items. At most 128 registers a
+// thread, so that two blocks share an SM.
 template <typename T, int STRIDE, bool PADDED, int VEC>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kBwdThreads, 2)
 window_taps_bwd_kernel(const T* __restrict__ h, const float* __restrict__ oy,
                        const float* __restrict__ ox, const float* __restrict__ gate,
                        const float* __restrict__ ct, T* __restrict__ dh,
                        float* __restrict__ doy, float* __restrict__ dox,
-                       float* __restrict__ dgate, int B, int H, int W, int Ho, int Wo,
-                       int K, int kw, int Cout, int m, long long dh_blocks) {
-  if ((long long)blockIdx.x < dh_blocks) {
-    const long long total = (long long)B * H * W * (K * Cout / VEC);
-    dh_gather<T, STRIDE, PADDED, VEC>(oy, ox, gate, ct, dh, H, W, Ho, Wo, K, kw, Cout, m,
-                                      (long long)blockIdx.x * kBwdThreads + threadIdx.x, total);
-  } else {
-    const long long n_items = (long long)B * Ho * Wo * K;
-    const long long item = ((long long)blockIdx.x - dh_blocks) * kBwdWarps + threadIdx.x / 32;
-    offset_grads<T, STRIDE, PADDED, VEC>(h, oy, ox, gate, ct, doy, dox, dgate, H, W, Ho, Wo,
-                                         K, kw, Cout, m, item, n_items, threadIdx.x % 32);
-  }
+                       float* __restrict__ dgate, const BwdGeom g, long long dh_blocks) {
+  const bool dh_kind = blockIdx.x < dh_blocks;
+  const long long idx = dh_kind ? blockIdx.x : blockIdx.x - dh_blocks;
+  const long long warp = idx * kBwdWarps + threadIdx.x / 32;
+  if (dh_kind)
+    dh_strip<T, STRIDE, PADDED, VEC>(oy, ox, gate, ct, dh, g, warp, threadIdx.x % 32);
+  else
+    offset_grads<T, STRIDE, PADDED, VEC>(h, oy, ox, gate, ct, doy, dox, dgate, g, warp,
+                                         threadIdx.x % 32);
 }
 
 template <typename T, int STRIDE, bool PADDED, int VEC>
@@ -453,14 +584,16 @@ cudaError_t launch_bwd(const void* h, const float* oy, const float* ox, const fl
                        const float* ct, void* dh, float* doy, float* dox, float* dgate,
                        int B, int H, int W, int Ho, int Wo, int K, int kw, int Cout, int m,
                        cudaStream_t stream) {
-  const long long dh_threads = (long long)B * H * W * (K * Cout / VEC);
-  const long long dh_blocks = (dh_threads + kBwdThreads - 1) / kBwdThreads;
-  const long long off_blocks = ((long long)B * Ho * Wo * K + kBwdWarps - 1) / kBwdWarps;
+  const BwdGeom g{B, H, W, Ho, Wo, K, kw, Cout, m};
+  const long long strips = (H + kStrip - 1) / kStrip;
+  long long dh_blocks = (((long long)B * K * strips * W + kBwdWarps - 1) / kBwdWarps);
+  const long long groups = (K + off_taps<VEC> - 1) / off_taps<VEC>;
+  long long off_blocks = (((long long)B * Ho * Wo * groups + kBwdWarps - 1) / kBwdWarps);
   if (dh_blocks + off_blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
   window_taps_bwd_kernel<T, STRIDE, PADDED, VEC><<<(unsigned)(dh_blocks + off_blocks),
                                                    kBwdThreads, 0, stream>>>(
-      static_cast<const T*>(h), oy, ox, gate, ct, static_cast<T*>(dh), doy, dox, dgate, B, H,
-      W, Ho, Wo, K, kw, Cout, m, dh_blocks);
+      static_cast<const T*>(h), oy, ox, gate, ct, static_cast<T*>(dh), doy, dox, dgate, g,
+      dh_blocks);
   return cudaGetLastError();
 }
 

@@ -87,6 +87,133 @@ def test_backward_kernel_matches_plain(card, stride, dtype, Cout):
         assert ((a.float() - b).abs() <= bar).all()
 
 
+def _held_backward(got, want):
+    """`test_backward_kernel_matches_plain`'s bars, for each of d h_all, d oy,
+    d ox and d gate."""
+    for a, b in zip(got, want):
+        bar = 1e-5 * max(1.0, b.abs().max().item())
+        if a.dtype == torch.bfloat16:
+            bar = bar + 2.0 ** -8 * b.abs()
+        assert a.shape == b.shape and ((a.float() - b).abs() <= bar).all()
+
+
+def _unaligned(t):
+    """A contiguous copy of `t` whose data starts past a 16-byte boundary,
+    so that the wrapper takes the kernel's one-element path."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = flat[2:2 + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+# (stride, B, H, W, Cout, unaligned map): heights that are no multiple of
+# the d h strip (4 rows), a 1 x 1 map, odd H != W, several images (strips
+# and offset items at the batch seam), Cout 12, 16 and 256, and the
+# one-element path
+TILING_CASES = [
+    (1, 1, 1, 1, 16, False), (2, 1, 1, 1, 16, False),
+    (1, 3, 9, 23, 12, False), (2, 3, 11, 7, 12, False),
+    (1, 2, 17, 33, 256, False), (2, 2, 35, 19, 256, False),
+    (1, 1, 16, 16, 16, True), (2, 2, 13, 17, 16, True),
+    (1, 1, 5, 3, 256, True), (2, 1, 3, 5, 12, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride,B,H,W,Cout,unaligned", TILING_CASES)
+def test_backward_tiling_matches_plain(card, dtype, stride, B, H, W, Cout, unaligned):
+    """The backward against the plain version at shapes that test the d h
+    strips' and offset items' edges, with offsets at exactly +-m and at
+    integers and gates of exactly 0 and 1; one launch per call."""
+    rng = np.random.RandomState(20 + H + W)
+    fn = (tdk.window_accumulate_taps_inpad_backward if stride == 1
+          else tdk.window_accumulate_taps_s2_backward)
+    ref = (tdk.window_accumulate_taps_inpad_backward_reference if stride == 1
+           else tdk.window_accumulate_taps_s2_backward_reference)
+    h, oy, ox, g = _inputs(rng, H, W, Cout, stride, B=B)
+    h = h.to(dtype)
+    if unaligned:
+        h = _unaligned(h)
+    ct = torch.from_numpy(rng.randn(B, oy.shape[2], oy.shape[3], Cout).astype(np.float32)).cuda()
+    before = fn.launches
+    got = fn(h, oy, ox, g, ct, 3, 9)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got[0].dtype == dtype
+    _held_backward(got, ref(h.float(), oy, ox, g, ct, 3, 9))
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_repeats_bit_for_bit(card, stride, dtype):
+    """Rows 1b and 2b at the train step's P3 shape (batch 4, 56 x 56 input,
+    Cout 256): no atomics and a fixed order, so two calls give equal bits."""
+    h, oy, ox, g = _inputs(np.random.RandomState(21), 56, 56, 256, stride, B=4)
+    h = h.to(dtype)
+    ct = torch.randn(4, oy.shape[2], oy.shape[3], 256, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(1))
+    fn = (tdk.window_accumulate_taps_inpad_backward if stride == 1
+          else tdk.window_accumulate_taps_s2_backward)
+    a = fn(h, oy, ox, g, ct, 3, 9)
+    b = fn(h, oy, ox, g, ct, 3, 9)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# (B, Ho, Wo, Cout, K, m, map type) of the pre-padded map: a 1 x 1 output,
+# odd sizes, m of 1 and 2, and K = 1 (row 4's single map: fp32, no gate)
+PADDED_TILING_CASES = [(1, 1, 1, 12, 9, 3, torch.float32), (1, 1, 1, 12, 9, 3, torch.bfloat16),
+                       (2, 9, 19, 16, 4, 1, torch.float32), (2, 9, 19, 16, 4, 1, torch.bfloat16),
+                       (3, 5, 6, 12, 9, 2, torch.bfloat16), (1, 17, 3, 256, 1, 3, torch.float32)]
+
+
+@pytest.mark.parametrize("B,Ho,Wo,Cout,K,m,dtype", PADDED_TILING_CASES)
+def test_padded_backward_tiling_matches_plain(card, B, Ho, Wo, Cout, K, m, dtype):
+    """Rows 3b and 4b take the same backward through the PADDED template: d hp
+    over the whole padded map within the bars, bit-repeatable."""
+    hp, oy, ox, g, ct = _padded_inputs(np.random.RandomState(22 + Ho), B, Ho, Wo, Cout, K, m=m)
+    if K == 1:
+        fn, args = tdk.window_accumulate_backward, (hp, oy[:, 0].contiguous(),
+                                                    ox[:, 0].contiguous(), ct, m)
+        ref = tdk.window_accumulate_backward_reference
+        want = ref(*args)
+    else:
+        fn, args = tdk.window_accumulate_taps_backward, (hp.to(dtype), oy, ox, g, ct, m, K)
+        want = tdk.window_accumulate_taps_backward_reference(args[0].float(), *args[1:])
+    got = fn(*args)
+    again = fn(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _held_backward(got, want)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_backward_twelve_taps_matches_plain(card, stride):
+    """K = 12 taps in rows of kw = 3 (tap rows reach one pixel further than
+    a 3 x 3 conv's): any K is taken."""
+    rng = np.random.RandomState(24)
+    fn = (tdk.window_accumulate_taps_inpad_backward if stride == 1
+          else tdk.window_accumulate_taps_s2_backward)
+    ref = (tdk.window_accumulate_taps_inpad_backward_reference if stride == 1
+           else tdk.window_accumulate_taps_s2_backward_reference)
+    h, oy, ox, g = _inputs(rng, 9, 10, 16, stride, K=12, B=2)
+    ct = torch.from_numpy(rng.randn(2, oy.shape[2], oy.shape[3], 16).astype(np.float32)).cuda()
+    _held_backward(fn(h, oy, ox, g, ct, 3, 12), ref(h, oy, ox, g, ct, 3, 12))
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_backward_wide_window_matches_plain(card, stride):
+    """m = 5: more candidates per d h strip than two rounds of 32 lanes
+    test."""
+    rng = np.random.RandomState(26)
+    fn = (tdk.window_accumulate_taps_inpad_backward if stride == 1
+          else tdk.window_accumulate_taps_s2_backward)
+    ref = (tdk.window_accumulate_taps_inpad_backward_reference if stride == 1
+           else tdk.window_accumulate_taps_s2_backward_reference)
+    h, oy, ox, g = _inputs(rng, 13, 11, 16, stride, m=5, B=2)
+    ct = torch.from_numpy(rng.randn(2, oy.shape[2], oy.shape[3], 16).astype(np.float32)).cuda()
+    _held_backward(fn(h, oy, ox, g, ct, 5, 9), ref(h, oy, ox, g, ct, 5, 9))
+
+
 @pytest.mark.parametrize("stride", [1, 2])
 def test_deform_conv_gradients_card_match_cpu(card, stride):
     rng = np.random.RandomState(4)
