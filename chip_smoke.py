@@ -8,8 +8,9 @@ non-zero):
 1. build every CUDA kernel of the port from `lpi_tpu_torch/csrc/`;
 2. hold each forward kernel against its plain PyTorch version on the card at
    every shape the 448 px grounding predictor (batch 1) and train step
-   (batch 4) give it, in fp32 and bf16, and time both (CUDA graphs, median
-   of 20);
+   (batch 4) give it, in fp32 and bf16, with one launch per call and two
+   calls equal bit for bit, time both (CUDA graphs, median of 20) and give
+   each level's share of the bound (the rows of h that carry weight);
    2b. the same for the two backward kernels at the train step's shapes,
        with one launch per call, two calls equal bit for bit and each
        level's share of the bound;
@@ -141,8 +142,11 @@ def _record(name, replaces, source="lpi_tpu_torch/csrc/deform_window.cu"):
 
 def check_forward_kernels(dk, gen, records):
     """Phase 2: the forward kernels at the predictor's (batch 1) and the
-    train step's (batch 4) shapes; the record sums the train step's launches
-    (bf16 maps), `predict_ms` the predictor's."""
+    train step's (batch 4) shapes, one launch per call and two calls equal
+    bit for bit (no atomics, a fixed order); the bound counts the rows of h
+    that these offsets and gates weight (`window_bound_ms(offsets=...)`).
+    The record sums the train step's launches (bf16 maps), `predict_ms` the
+    predictor's."""
     specs = (("window_accumulate_taps_inpad", 1, INPAD_SHAPES, dk.window_accumulate_taps_inpad,
               dk.window_accumulate_taps_inpad_reference),
              ("window_accumulate_taps_s2", 2, S2_SHAPES, dk.window_accumulate_taps_s2,
@@ -156,8 +160,10 @@ def check_forward_kernels(dk, gen, records):
                     h, oy, ox, g, _ = kernel_inputs(gen, side, stride, dtype, batch)
                     args = (h, oy, ox, g, M, K, KW)
                     want = ref_fn(*args)
-                    got = fn(*args)
-                    torch.cuda.synchronize()
+                    got = _launched_once(fn, *args)
+                    if not torch.equal(got, _launched_once(fn, *args)):
+                        raise AssertionError(f"{name} {dtype} b{batch} side {side}: two calls "
+                                             f"differ")
                     err = (got - want).abs().max().item()
                     scale = max(1.0, want.abs().max().item())
                     if not (err <= REL_TOL * scale and torch.isfinite(got).all()):
@@ -167,11 +173,13 @@ def check_forward_kernels(dk, gen, records):
                     ms = device_time_ms(lambda: fn(*args), inner=10)
                     plain = device_time_ms(lambda: ref_fn(*args))
                     eager = eager_time_ms(lambda: fn(*args))
-                    bms, kind = window_bound_ms(h, oy, 256)
+                    bms, kind = window_bound_ms(h, oy, 256, offsets=(ox, g, stride, M, KW))
                     log(f"kernel {name} {str(dtype)[6:]} b{batch} in {side}x{side}x{K * 256} "
                         f"stride {stride}: {ms:.6f} ms, plain {plain:.6f} ms, bound "
-                        f"{bms:.6f} ms ({kind}), eager call {eager:.6f} ms, max abs "
-                        f"err {err:.3e} (tol {REL_TOL} x {scale:.3f})")
+                        f"{bms:.6f} ms ({kind}, the weighted rows of h; {100 * bms / ms:.1f}% "
+                        f"of it; one read of all of h {window_bound_ms(h, oy, 256)[0]:.6f} ms), "
+                        f"eager call {eager:.6f} ms, max abs err {err:.3e} (tol {REL_TOL} x "
+                        f"{scale:.3f}); two calls equal bit for bit")
                     if dtype != torch.bfloat16:  # the 448 px model's maps are bf16
                         continue
                     n = per_tower * TOWERS

@@ -24,21 +24,47 @@
 // skips displacements outside [-m, m+1] as the hat sum's window does, and adds
 // the nonzero terms in the hat sum's order (k, then dy, then dx ascending).
 //
-// Thread mapping: one thread owns VEC neighbouring output channels of one
-// output pixel (VEC = 8 for bf16, 4 for fp32: one 16-byte load per corner);
-// neighbouring threads take neighbouring channel groups of the same pixel, so
-// the corner reads of a warp are contiguous in the NHWC, tap-major h_all. The
-// pixel's 9 (oy, ox, g) triples are warp-uniform loads. Accumulation is fp32
-// in registers; the output is written once, fp32.
+// Bound on an H100 (3.35 TB/s, 67 TFLOP/s fp32 outside the tensor cores):
+// bytes. The floor reads the rows of h_all that carry weight once, the
+// offsets and gate once, and writes out once. At P3 of the 448 px train step
+// (4 x 56 x 56, K*Cout = 2304, bf16) with offsets spread over [-m, m] nearly
+// every row carries weight: about 53 MB + 1.4 MB + 12.8 MB, 20 us; at stride
+// 2 an output reads at most 4 rows per tap, about half of h, 9 us. The
+// arithmetic (4 corners x 9 taps x 2 flops per output value) is under 2 us.
+// What the card pays above the floor, and what the design does:
 //
-// Bound on an H100 (3.35 TB/s, 67 TFLOP/s fp32 outside the tensor cores): the
-// floor is one read of h_all plus the offsets and one write of out. At P3 of
-// the 448 px slice (56x56, K*Cout = 2304, bf16) that is 14.5 MB + 0.3 MB +
-// 3.2 MB, about 5.3 us; the arithmetic (4 corners x 9 taps x 2 flops per
-// output value) is under 1 us. So the kernel is bound by bytes. Corners are
-// re-read by up to four neighbouring pixels; those re-reads hit L1/L2 (the
-// whole P3 map fits in the 50 MB L2). Shared-memory tiling and TMA are later
-// work.
+// * Dependent loads. Each corner's address depends on its tap's offsets: a
+//   thread that walks the taps loading offsets, then corners, waits on about
+//   18 loads one after another, and at the small maps (4x4 to 14x14 at
+//   batch 4: 64 to 784 pixels) too few warps hide it (8-12 us a launch
+//   against a floor under 1.5 us). Here a block first builds its tile's
+//   corner table in shared memory: one thread per (pixel, tap) loads that
+//   tap's offsets and gate (coalesced along x, all taps in one round trip)
+//   and writes the four corners' weights and rows. The sum then reads the
+//   table and issues a tap's four corner loads at once.
+// * Too few blocks. A block takes a tile of P output pixels, P a power of
+//   two chosen at launch from the shape: the largest (at most 256 threads a
+//   block) that still gives every SM two blocks, down to one warp's worth.
+//   So the small maps get one or two pixels a block and fill the card.
+// * Occupancy. The large maps are bound by the corners' re-reads through
+//   L2 (each row of h is read by up to four outputs: reckoned, about 185 MB
+//   at P3 bf16 where the floor reads 53 MB), which needs many warps with
+//   loads in flight. More taps in flight a thread (three: 175 registers for
+//   bf16, one block an SM) ran slower than one tap at 64 registers a
+//   thread, four blocks an SM (kFwdMinBlocks); fewer registers spill.
+// * Re-reads. The tile is two-dimensional (2 x 4 pixels for a bf16 Cout of
+//   256) so that a block's corners overlap more than those of a row of
+//   pixels; the rest come from L2 (the rows in flight fit in its 50 MB).
+//
+// Thread mapping of the sum: one thread owns VEC neighbouring output channels
+// of one output pixel (VEC = 8 for bf16, 4 for fp32: one 16-byte load per
+// corner); neighbouring threads take neighbouring channel groups of the same
+// pixel, so a warp's corner reads are contiguous in the NHWC, tap-major
+// h_all, and its table reads are broadcasts. Accumulation is fp32 in
+// registers, with fused multiply-adds in the hat sum's order (k, then dy,
+// then dx), so the output carries the bits of a thread that walks the taps
+// one after another; it is written once, fp32. No atomics: two calls give
+// equal bits.
 //
 // ---------------------------------------------------------------------------
 // Backward (`lpi_window_taps_bwd`): replaces the Pallas TPU kernels
@@ -160,62 +186,139 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&v)[VEC
 template <bool PADDED>
 __device__ __forceinline__ int tap_shift(int t, int m) { return PADDED ? m : t - 1; }
 
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdThreads = 256;         // at most, a block
+constexpr int kFwdMinBlocks = 4;         // blocks an SM, so at most 64 registers a thread
+constexpr int kTableBytes = 48 * 1024;   // a block's corner table at most
+
+// The four corners (dy, dx) = (floor, floor), (floor, floor + 1), (floor + 1,
+// floor), (floor + 1, floor + 1) of one (output pixel, tap): their weights
+// g * hat * hat, 0 for a corner that is skipped, and their rows iy * W + ix.
+struct Corners {
+  float4 w;
+  int4 r;
+};
+
+struct FwdGeom {
+  int H, W, Ho, Wo, K, kw, Cout, m;
+  int tile_y, tile_x;    // a block's tile of output pixels: tile_y * tile_x = blockDim.y
+  int tiles_y, tiles_x;  // tiles per image
+};
+
+// VEC consecutive elements of T, loaded with one 16-byte load where VEC *
+// sizeof(T) == 16 (the wrapper checks alignment before choosing VEC > 1),
+// kept as loaded until they are added: converted at the load (`load_vec`),
+// the bf16 forward took 30% longer at P3.
+template <typename T, int VEC>
+struct alignas(VEC * sizeof(T) == 16 ? 16 : alignof(T)) Packed {
+  T e[VEC];
+};
+
+template <typename T, int VEC>
+__device__ __forceinline__ Packed<T, VEC> load_packed(const T* __restrict__ p) {
+  Packed<T, VEC> v;
+  if constexpr (VEC * sizeof(T) == 16) {
+    *reinterpret_cast<uint4*>(&v) = __ldg(reinterpret_cast<const uint4*>(p));
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v.e[i] = p[i];
+  }
+  return v;
+}
+
+// The corners of output pixel (yo, xo) and tap k of image b, each weighted
+// with the hat sum's own float expressions; a corner outside the window
+// [-m, m+1] or the map keeps weight 0.
+template <int STRIDE, bool PADDED>
+__device__ __forceinline__ Corners corners_of(const float* __restrict__ oy,
+                                              const float* __restrict__ ox,
+                                              const float* __restrict__ gate,
+                                              const FwdGeom& g, long long b, int k, int yo,
+                                              int xo) {
+  const long long o = ((b * g.K + k) * g.Ho + yo) * g.Wo + xo;
+  const float o_y = __ldg(oy + o), o_x = __ldg(ox + o);
+  const float gg = gate ? __ldg(gate + o) : 1.f;
+  const float fy = floorf(o_y), fx = floorf(o_x);
+  const float lo = (float)(-g.m), hi = (float)(g.m + 1);
+  const int by = STRIDE * yo + tap_shift<PADDED>(k / g.kw, g.m);
+  const int bx = STRIDE * xo + tap_shift<PADDED>(k % g.kw, g.m);
+  float w[4] = {0.f, 0.f, 0.f, 0.f};
+  int r[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const float dy = fy + (float)a;
+    const int iy = by + (int)dy;
+    if (dy < lo || dy > hi || iy < 0 || iy >= g.H) continue;
+    const float gwy = gg * fmaxf(0.f, 1.f - fabsf(o_y - dy));
+#pragma unroll
+    for (int bb = 0; bb < 2; ++bb) {
+      const float dx = fx + (float)bb;
+      const int ix = bx + (int)dx;
+      if (dx < lo || dx > hi || ix < 0 || ix >= g.W) continue;
+      w[2 * a + bb] = gwy * fmaxf(0.f, 1.f - fabsf(o_x - dx));
+      r[2 * a + bb] = iy * g.W + ix;
+    }
+  }
+  return {make_float4(w[0], w[1], w[2], w[3]), make_int4(r[0], r[1], r[2], r[3])};
+}
+
+// One block per tile of blockDim.y output pixels (tile_y x tile_x of one
+// image) and blockDim.x * VEC channels. First the tile's corner table,
+// [K][pixels] in shared memory, one (pixel, tap) per thread; then each thread
+// sums its pixel's VEC channels, one tap's four corner loads at a time.
 template <typename T, int STRIDE, bool PADDED, int VEC>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kFwdThreads, kFwdMinBlocks)
 window_taps_kernel(const T* __restrict__ h, const float* __restrict__ oy,
                    const float* __restrict__ ox, const float* __restrict__ gate,
-                   float* __restrict__ out, int H, int W, int Ho, int Wo, int K,
-                   int kw, int Cout, int m, long long npix) {
-  const int groups = Cout / VEC;
-  const int cg = blockIdx.y * blockDim.x + threadIdx.x;
-  const long long pix = (long long)blockIdx.x * blockDim.y + threadIdx.y;
-  if (cg >= groups || pix >= npix) return;
+                   float* __restrict__ out, const FwdGeom g) {
+  extern __shared__ Corners table[];
+  const int P = blockDim.y;
+  long long t = blockIdx.x;
+  const int x0 = (int)(t % g.tiles_x) * g.tile_x;
+  t /= g.tiles_x;
+  const int y0 = (int)(t % g.tiles_y) * g.tile_y;
+  const long long b = t / g.tiles_y;
 
-  const int xo = (int)(pix % Wo);
-  const long long rest = pix / Wo;
-  const int yo = (int)(rest % Ho);
-  const long long b = rest / Ho;
-  const int c0 = cg * VEC;
-  const long long KC = (long long)K * Cout;
-  const long long plane = (long long)Ho * Wo;
-  const long long obase = b * K * plane + (long long)yo * Wo + xo;
-  const T* hb = h + b * H * W * KC + c0;
-  const float lo = (float)(-m), hi = (float)(m + 1);
+  // pixels fastest, so that a warp's offset and gate loads run along x
+  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < g.K * P; i += blockDim.x * P) {
+    const int p = i % P;
+    const int yo = y0 + p / g.tile_x, xo = x0 + p % g.tile_x;
+    table[i] = yo < g.Ho && xo < g.Wo
+                   ? corners_of<STRIDE, PADDED>(oy, ox, gate, g, b, i / P, yo, xo)
+                   : Corners{make_float4(0.f, 0.f, 0.f, 0.f), make_int4(0, 0, 0, 0)};
+  }
+  __syncthreads();
+
+  const int p = threadIdx.y;
+  const int yo = y0 + p / g.tile_x, xo = x0 + p % g.tile_x;
+  const int c0 = (blockIdx.y * blockDim.x + threadIdx.x) * VEC;
+  if (yo >= g.Ho || xo >= g.Wo || c0 >= g.Cout) return;
+  const long long KC = (long long)g.K * g.Cout;
+  const T* hb = h + b * g.H * g.W * KC + c0;
 
   float acc[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-
-  for (int k = 0; k < K; ++k) {
-    const float o_y = __ldg(oy + obase + k * plane);
-    const float o_x = __ldg(ox + obase + k * plane);
-    const float g = gate ? __ldg(gate + obase + k * plane) : 1.f;
-    const float fy = floorf(o_y), fx = floorf(o_x);
-    const int by = STRIDE * yo + tap_shift<PADDED>(k / kw, m);
-    const int bx = STRIDE * xo + tap_shift<PADDED>(k % kw, m);
-    const T* hk = hb + (long long)k * Cout;
+  for (int k = 0; k < g.K; ++k) {
+    const Corners c = table[k * P + p];
+    const float w[4] = {c.w.x, c.w.y, c.w.z, c.w.w};
+    const int r[4] = {c.r.x, c.r.y, c.r.z, c.r.w};
+    const T* hk = hb + (long long)k * g.Cout;
+    Packed<T, VEC> v[4];
 #pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      const float dy = fy + (float)a;
-      const int iy = by + (int)dy;
-      if (dy < lo || dy > hi || iy < 0 || iy >= H) continue;
-      const float gwy = g * fmaxf(0.f, 1.f - fabsf(o_y - dy));
+    for (int j = 0; j < 4; ++j)
+      if (w[j] != 0.f) v[j] = load_packed<T, VEC>(hk + r[j] * KC);
 #pragma unroll
-      for (int bb = 0; bb < 2; ++bb) {
-        const float dx = fx + (float)bb;
-        const int ix = bx + (int)dx;
-        if (dx < lo || dx > hi || ix < 0 || ix >= W) continue;
-        const float c = gwy * fmaxf(0.f, 1.f - fabsf(o_x - dx));
-        if (c == 0.f) continue;
-        float v[VEC];
-        load_vec<T, VEC>(hk + ((long long)iy * W + ix) * KC, v);
+    for (int j = 0; j < 4; ++j)
+      if (w[j] != 0.f)
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[i] += c * v[i];
-      }
-    }
+        for (int i = 0; i < VEC; ++i) acc[i] = fmaf(w[j], to_float(v[j].e[i]), acc[i]);
   }
 
-  float* o = out + pix * Cout + c0;
+  float* o = out + ((b * g.Ho + yo) * g.Wo + xo) * g.Cout + c0;
   if constexpr (VEC % 4 == 0) {
 #pragma unroll
     for (int i = 0; i < VEC; i += 4)
@@ -226,20 +329,53 @@ window_taps_kernel(const T* __restrict__ h, const float* __restrict__ oy,
   }
 }
 
+// A tile of P output pixels (a power of two), as square as P allows and no
+// wider than the map needs.
+void set_tile(FwdGeom& g, int P) {
+  int lg = 0;
+  while ((1 << lg) < P) ++lg;
+  int tx = 1 << ((lg + 1) / 2);
+  while (tx > 1 && tx / 2 >= g.Wo) tx /= 2;
+  g.tile_x = tx;
+  g.tile_y = P / tx;
+  g.tiles_x = (g.Wo + g.tile_x - 1) / g.tile_x;
+  g.tiles_y = (g.Ho + g.tile_y - 1) / g.tile_y;
+}
+
+// The block's pixels P: the largest power of two with at most kFwdThreads
+// threads and a corner table of at most kTableBytes that still gives every
+// SM two blocks, and no fewer than a warp's worth where the table allows.
 template <typename T, int STRIDE, bool PADDED, int VEC>
 cudaError_t launch(const void* h, const float* oy, const float* ox, const float* gate,
                    float* out, int B, int H, int W, int Ho, int Wo, int K, int kw,
                    int Cout, int m, cudaStream_t stream) {
   const int groups = Cout / VEC;
-  const int bx = groups < 256 ? groups : 256;
-  const int by = 256 / bx > 0 ? 256 / bx : 1;
-  const long long npix = (long long)B * Ho * Wo;
-  const long long gx = (npix + by - 1) / by;
-  if (gx > 2147483647LL) return cudaErrorInvalidConfiguration;
-  dim3 block(bx, by);
-  dim3 grid((unsigned)gx, (unsigned)((groups + bx - 1) / bx));
-  window_taps_kernel<T, STRIDE, PADDED, VEC><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(h), oy, ox, gate, out, H, W, Ho, Wo, K, kw, Cout, m, npix);
+  const int bx = groups < kFwdThreads ? groups : kFwdThreads;
+  const int gy = (groups + bx - 1) / bx;
+  int most = kFwdThreads / bx;
+  const int table_most = kTableBytes / (K * (int)sizeof(Corners));
+  if (table_most < 1) return cudaErrorInvalidValue;
+  if (most > table_most) most = table_most;
+  int pmax = 1, pmin = 1;
+  while (pmax * 2 <= most) pmax *= 2;
+  while (pmin * bx < 32 && pmin < pmax) pmin *= 2;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  FwdGeom g{H, W, Ho, Wo, K, kw, Cout, m, 0, 0, 0, 0};
+  long long blocks = 0;
+  for (int P = pmax;; P /= 2) {
+    set_tile(g, P);
+    blocks = (long long)B * g.tiles_y * g.tiles_x;
+    if (P == pmin || blocks * gy >= 2LL * sms) break;
+  }
+  if (blocks > 2147483647LL || gy > 65535) return cudaErrorInvalidConfiguration;
+  dim3 block(bx, g.tile_y * g.tile_x);
+  dim3 grid((unsigned)blocks, (unsigned)gy);
+  const size_t table = (size_t)K * block.y * sizeof(Corners);
+  window_taps_kernel<T, STRIDE, PADDED, VEC><<<grid, block, table, stream>>>(
+      static_cast<const T*>(h), oy, ox, gate, out, g);
   return cudaGetLastError();
 }
 

@@ -107,18 +107,60 @@ def bound_ms(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def weighted_rows(oy: torch.Tensor, ox: torch.Tensor, gate: torch.Tensor, H: int, W: int,
+                  m: int, kw: int = 3, stride: int = 1) -> int:
+    """The (b, row, column, tap) rows of the unpadded product map h
+    [B, H, W, K*Cout] that carry nonzero weight in the window sum at these
+    offsets and gates ([B, K, Ho, Wo] fp32), each counted once however many
+    outputs read it: the corners floor(o) and floor(o) + 1 per axis that lie
+    in the window [-m, m+1] and in the map and whose weight g * hat * hat
+    (the kernel's float expression) is not 0. Counted on the offsets'
+    device."""
+    B, K, Ho, Wo = oy.shape
+    dev = oy.device
+    k = torch.arange(K, device=dev).view(1, K, 1, 1)
+    ys = torch.arange(Ho, device=dev).view(1, 1, Ho, 1) * stride + k // kw - 1
+    xs = torch.arange(Wo, device=dev).view(1, 1, 1, Wo) * stride + k % kw - 1
+    row0 = (torch.arange(B, device=dev).view(B, 1, 1, 1) * K + k) * H  # (b, k, 0)
+    hit = torch.zeros(B * K * H * W, dtype=torch.bool, device=dev)
+    fy, fx = torch.floor(oy), torch.floor(ox)
+    for a in (0, 1):
+        dy = fy + a
+        iy = ys + dy.long()
+        gwy = gate * torch.clamp(1.0 - (oy - dy).abs(), min=0.0)
+        for b in (0, 1):
+            dx = fx + b
+            ix = xs + dx.long()
+            w = gwy * torch.clamp(1.0 - (ox - dx).abs(), min=0.0)
+            ok = ((dy >= -m) & (dy <= m + 1) & (dx >= -m) & (dx <= m + 1) & (iy >= 0)
+                  & (iy < H) & (ix >= 0) & (ix < W) & (w != 0))
+            hit[((row0 + iy) * W + ix)[ok]] = True
+    return int(hit.sum())
+
+
 def window_bound_ms(h: torch.Tensor, oy: torch.Tensor, Cout: int, maps: int = 3,
-                    backward: bool = False):
+                    backward: bool = False, offsets=None):
     """Least time of a window sum: the product map h and the `maps` offset
     and gate maps (each of oy's shape, fp32) read once and the fp32 output
     [B, Ho, Wo, Cout] written once; the VJP also writes d h and the maps'
     gradients, and reads the cotangent in place of writing the output. The
     operations: 4 corners x 2 flops per tap and output value, twice that in
-    the VJP."""
+    the VJP.
+
+    `offsets` = (ox, gate, stride, m, kw), for the forward over the unpadded
+    map: h's bytes are then only its rows that carry weight
+    (`weighted_rows`) x Cout x its element size, the least the kernel must
+    read; without it, one read of all of h."""
     B, Ho, Wo = oy.shape[0], oy.shape[-2], oy.shape[-1]
     taps = oy.numel() // (B * Ho * Wo)
     out = B * Ho * Wo * Cout
     h_bytes, map_bytes = h.numel() * h.element_size(), maps * oy.numel() * 4
+    if offsets is not None:
+        if backward:
+            raise ValueError("the weighted rows bound the forward only")
+        ox, gate, stride, m, kw = offsets
+        h_bytes = (weighted_rows(oy, ox, gate, h.shape[1], h.shape[2], m, kw, stride)
+                   * Cout * h.element_size())
     if backward:
         return bound_ms(2 * h_bytes + 2 * map_bytes + 4 * out, out * taps * 16)
     return bound_ms(h_bytes + map_bytes + 4 * out, out * taps * 8)

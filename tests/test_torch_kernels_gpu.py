@@ -143,6 +143,70 @@ def test_backward_tiling_matches_plain(card, dtype, stride, B, H, W, Cout, unali
     _held_backward(got, ref(h.float(), oy, ox, g, ct, 3, 9))
 
 
+def _forward(stride):
+    """Row 1f or 2f and its plain version."""
+    if stride == 1:
+        return tdk.window_accumulate_taps_inpad, tdk.window_accumulate_taps_inpad_reference
+    return tdk.window_accumulate_taps_s2, tdk.window_accumulate_taps_s2_reference
+
+
+def _held_forward(fn, args, want):
+    """One launch per call, two calls equal bit for bit, and the output
+    within 1e-5 x max(1, max |plain|) of the plain version."""
+    before = fn.launches
+    got = fn(*args)
+    again = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert torch.equal(got, again)
+    assert got.shape == want.shape and _within(got, want)
+
+
+# the backward's cases (tiles of 1 to 8 pixels with ragged edges, 1 x 1
+# maps, odd H != W, batch seams, Cout 12, 16 and 256, the one-element path),
+# Cout 260 on the one-element path (two blocks of channels, the second
+# ragged) and the gate's 16 fp32 channels at batch 4 (tiles of 8 or more
+# pixels)
+FORWARD_TILING_CASES = TILING_CASES + [(1, 1, 6, 7, 260, True), (2, 4, 16, 16, 16, False),
+                                       (1, 4, 8, 8, 16, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride,B,H,W,Cout,unaligned", FORWARD_TILING_CASES)
+def test_forward_tiling_matches_plain(card, dtype, stride, B, H, W, Cout, unaligned):
+    """Rows 1f and 2f at shapes that test the tiles' and the corner table's
+    edges, with offsets at exactly +-m and at integers and gates of exactly 0
+    and 1."""
+    fn, ref = _forward(stride)
+    h, oy, ox, g = _inputs(np.random.RandomState(30 + H + W), H, W, Cout, stride, B=B)
+    h = h.to(dtype)
+    if unaligned:
+        h = _unaligned(h)
+    _held_forward(fn, (h, oy, ox, g, 3, 9), ref(h, oy, ox, g, 3, 9))
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("K,m", [(12, 3), (9, 5), (6, 1)])
+def test_forward_taps_and_window_match_plain(card, stride, K, m):
+    """K = 12 and 6 (tap rows of kw = 3; the padded cases take K = 4 and 1)
+    and m = 5 and 1."""
+    fn, ref = _forward(stride)
+    h, oy, ox, g = _inputs(np.random.RandomState(31 + K + m), 9, 10, 16, stride, m=m, K=K,
+                           B=2)
+    _held_forward(fn, (h, oy, ox, g, m, K), ref(h, oy, ox, g, m, K))
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_repeats_bit_for_bit(card, stride, dtype):
+    """Rows 1f and 2f at the train step's P3 shape (batch 4, 56 x 56 input,
+    Cout 256): no atomics and a fixed order, so two calls give equal bits."""
+    fn, ref = _forward(stride)
+    h, oy, ox, g = _inputs(np.random.RandomState(33), 56, 56, 256, stride, B=4)
+    h = h.to(dtype)
+    _held_forward(fn, (h, oy, ox, g, 3, 9), ref(h, oy, ox, g, 3, 9))
+
+
 @pytest.mark.parametrize("stride", [1, 2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_repeats_bit_for_bit(card, stride, dtype):
@@ -184,6 +248,19 @@ def test_padded_backward_tiling_matches_plain(card, B, Ho, Wo, Cout, K, m, dtype
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     _held_backward(got, want)
+
+
+@pytest.mark.parametrize("B,Ho,Wo,Cout,K,m,dtype", PADDED_TILING_CASES)
+def test_padded_forward_tiling_matches_plain(card, B, Ho, Wo, Cout, K, m, dtype):
+    """Rows 3f and 4f take the forward through the PADDED template."""
+    hp, oy, ox, g, _ = _padded_inputs(np.random.RandomState(32 + Ho), B, Ho, Wo, Cout, K, m=m)
+    if K == 1:
+        args = (hp, oy[:, 0].contiguous(), ox[:, 0].contiguous(), m)
+        _held_forward(tdk.window_accumulate, args, tdk.window_accumulate_reference(*args))
+    else:
+        args = (hp.to(dtype), oy, ox, g, m, K)
+        _held_forward(tdk.window_accumulate_taps, args,
+                      tdk.window_accumulate_taps_reference(*args))
 
 
 @pytest.mark.parametrize("stride", [1, 2])
