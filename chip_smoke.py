@@ -33,13 +33,15 @@ The fused deformable conv (`deform_impl="fused"`) and the quality gate:
    2c. hold the fused forward and backward kernels (with and without d W)
        against their plain versions at every shape of the 448 px path
        (batch 1 and 4, 256 channels) and of the gate's config (16
-       channels, 64 px), and time them;
+       channels, 64 px), with one launch counted per call and two calls of
+       each equal bit for bit, and time them beside their bounds;
    3b. drive the fused predictor (bf16, full width) through a few requests
        with its launch counter checked, profile one, and compare the fp32
        fused model with the fp32 "pallas" route on the card;
    5b. drive the fused train step as phase 5 drives the other, profile one
-       step, and compare one fp32 `_losses` and its pool gradient, card vs
-       CPU, as phase 6 does;
+       step (one kernel of each kind per call; the record keeps the
+       kernels' device ms of that step), and compare one fp32 `_losses` and
+       its pool gradient, card vs CPU, as phase 6 does;
    7.  run the grounding quality gate (`lpi_tpu_torch.bench`) with the
        gate's own config and with `deform_impl="fused"`, each held to the
        gate's bars.
@@ -291,9 +293,11 @@ def check_fused_kernels(fk, gen, records):
     """Phase 2c: the fused forward and backward kernels against their plain
     versions, fp32, at the 448 px predictor's (batch 1) and train step's
     (batch 4) shapes, 256 channels, and at the gate's (batch 4, 16
-    channels, 64 px). The records sum the 448 px train step's launches (the
-    backward without d W: the continual step's head is frozen);
-    `predict_ms` the predictor's forward; `dw_ms` the backward with d W."""
+    channels, 64 px); one launch counted per call, two calls of each (the
+    backward with d W) equal bit for bit, and each level's share of the
+    bound. The records sum the 448 px train step's launches (the backward
+    without d W: the continual step's head is frozen); `predict_ms` the
+    predictor's forward; `dw_ms` the backward with d W."""
     fwd, bwd = records["fused_deform"], records["fused_deform_backward"]
     fwd["predict_ms"] = 0.0
     bwd["dw_ms"] = 0.0
@@ -306,17 +310,25 @@ def check_fused_kernels(fk, gen, records):
                 for side, per_tower in shapes.items():
                     f, oy, ox, g, w, ct = fused_inputs(gen, side, stride, batch, C)
                     args = (f, oy, ox, g, w, M, KW, stride)
-                    err = _held(f"fused_deform {label} b{batch} {side} s{stride}",
-                                fk.fused_deform(*args), fk.fused_deform_reference(*args))
+                    where = f"{label} b{batch} {side} s{stride}"
+                    got = _launched_once(fk.fused_deform, *args)
+                    if not torch.equal(got, _launched_once(fk.fused_deform, *args)):
+                        raise AssertionError(f"fused_deform {where}: two calls differ")
+                    err = _held(f"fused_deform {where}", got, fk.fused_deform_reference(*args))
                     fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
                     want = fk.fused_deform_backward_reference(f, oy, ox, g, w, ct, M, KW,
                                                               stride)
                     errs = []
                     for need_dw in (False, True):
-                        got = fk.fused_deform_backward(f, oy, ox, g, w, ct, M, KW, stride,
-                                                       need_dw=need_dw)
+                        got = _launched_once(fk.fused_deform_backward, f, oy, ox, g, w, ct, M,
+                                             KW, stride, need_dw)
                         if (got[4] is None) == need_dw:
                             raise AssertionError("fused_deform_backward: d W presence")
+                        if need_dw and not all(torch.equal(a, b) for a, b in zip(
+                                got, fk.fused_deform_backward(f, oy, ox, g, w, ct, M, KW,
+                                                              stride))):
+                            raise AssertionError(f"fused_deform_backward {where}: two calls "
+                                                 f"differ")
                         for what, a, b in zip(("df", "doy", "dox", "dgate", "dw"), got, want):
                             if a is not None:
                                 errs.append(_held(f"fused_deform_backward {label} b{batch} "
@@ -334,9 +346,11 @@ def check_fused_kernels(fk, gen, records):
                     bbdw, _ = fused_bound_ms(f, oy, C, C, backward=True, dw=True)
                     log(f"kernel fused_deform {label} b{batch} in {side}x{side}x{C} stride "
                         f"{stride}: {ms:.6f} ms, plain {plain:.6f} ms, bound {fb:.6f} ms "
-                        f"({fkind}), max abs err {err:.3e}; backward {bms:.6f} ms (with d W "
-                        f"{bdw:.6f} ms), plain {bplain:.6f} ms, bound {bb:.6f} ms ({bkind}; "
-                        f"with d W {bbdw:.6f} ms), max abs err {max(errs):.3e}")
+                        f"({fkind}; {100 * fb / ms:.1f}% of it), max abs err {err:.3e}; "
+                        f"backward {bms:.6f} ms (with d W {bdw:.6f} ms), plain {bplain:.6f} ms, "
+                        f"bound {bb:.6f} ms ({bkind}; {100 * bb / bms:.1f}% of it; with d W "
+                        f"{bbdw:.6f} ms, {100 * bbdw / bdw:.1f}%), max abs err {max(errs):.3e}; "
+                        f"two calls of each equal bit for bit")
                     if label != "448px":
                         continue
                     n = per_tower * towers
@@ -537,9 +551,27 @@ def train_phase(dk, fk, cfg, tok, records):
 
     kernels = _profile(lambda: step(batch), f"train step ({route})")
     log_deform_kernels(kernels)
+    if route == "fused":
+        record_fused_split(kernels, records, expected_counts(dk, fk, cfg, 1, train=True))
     del learner, step
     torch.cuda.empty_cache()
     return batch
+
+
+def record_fused_split(kernels, records, calls):
+    """The fused kernels' device ms in one profiled train step, by kernel,
+    into the records (`step_split_ms`): one forward kernel, one U product
+    and one sample launch per wrapper call, and no d W (the continual
+    step's head is frozen)."""
+    times = fused_kernel_times(kernels)
+    n = calls["fused_deform"]
+    want = {"fused_fwd_kernel": n, "u_product_kernel": n, "fused_bwd_sample_kernel": n}
+    got = {name: count for name, (count, _) in times.items()}
+    if got != want:
+        raise AssertionError(f"profiled fused step: kernel launches {got}, want {want}")
+    records["fused_deform"]["step_split_ms"] = {"fused_fwd_kernel": times["fused_fwd_kernel"][1]}
+    records["fused_deform_backward"]["step_split_ms"] = {
+        name: times[name][1] for name in ("u_product_kernel", "fused_bwd_sample_kernel")}
 
 
 def log_deform_kernels(kernels):

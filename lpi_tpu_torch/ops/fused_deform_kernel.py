@@ -29,16 +29,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import torch
 import torch.nn.functional as F
 
 from lpi_tpu_torch.ops import cuda_build
 from lpi_tpu_torch.ops.deform_window_kernel import _dhat, _hat
-
-_SMS = 132  # H100 SXM: the d W pass aims at a few waves of blocks
-_TILE = 64  # the kernels' channel tile (`kTP`, `kTN` in the source)
 
 
 # --------------------------------------------------------------------------
@@ -179,11 +175,18 @@ def _bwd_entry():
     return fn
 
 
+@functools.cache
+def _splits_entry():
+    fn = cuda_build.load("fused_deform").lpi_fused_deform_dw_splits
+    fn.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _dw_splits(npix: int, K: int, C: int, Cout: int) -> int:
-    """Pixel ranges of the d W pass: about eight waves of blocks over the
-    card, each range at least 256 output pixels."""
-    tiles = K * math.ceil(C / _TILE) * math.ceil(Cout / _TILE)
-    return max(1, min(math.ceil(npix / 256), math.ceil(8 * _SMS / tiles)))
+    """Pixel ranges of the d W pass, which size its partial tiles: the
+    kernel source's own rule, from its own tile (`lpi_fused_deform_dw_splits`)."""
+    return _splits_entry()(npix, K, C, Cout)
 
 
 def _launch(feats, oy, ox, gate, w, m, kw, stride):

@@ -532,3 +532,63 @@ def test_fused_function_computes_dw_only_for_a_trained_weight(card):
     torch.cuda.synchronize()
     assert tfk.fused_deform_backward.dw_launches == before + 1
     assert torch.isfinite(w.grad).all() and w.grad.abs().sum() > 0
+
+
+# The fused kernels' tile follows the shape (`pick_tile` in
+# `csrc/fused_deform.cu`: 64 x 128, 32 x 128 or 16 x 64 output pixels x
+# channels, the largest that gives 132 blocks); these hold its edges.
+@pytest.mark.parametrize("B,H,W,C,Cout,stride", [
+    (4, 8, 8, 16, 16, 1),                       # the gate's 16 channels
+    (2, 5, 4, 6, 10, 1), (2, 9, 7, 20, 72, 2),  # C, Cout not multiples of the tiles
+    (3, 11, 9, 16, 136, 1),                     # a ragged last pixel tile, two column tiles
+    (1, 1, 1, 32, 32, 1), (4, 1, 1, 32, 32, 1),
+    (1, 4, 4, 64, 64, 1), (4, 4, 4, 64, 64, 1),
+    (1, 7, 7, 64, 64, 1), (4, 7, 7, 64, 64, 1),
+    (2, 13, 11, 16, 24, 2), (1, 7, 5, 256, 256, 2),  # stride 2 on odd sides
+    (1, 5, 5, 300, 20, 1)])                     # two slabs of channels
+def test_fused_tile_edges_match_plain(card, B, H, W, C, Cout, stride):
+    """Forward (two calls equal bit for bit) and backward with d W within
+    1e-5 x max(1, max |plain|)."""
+    f, oy, ox, g, w, ct = _fused_inputs(np.random.RandomState(11), B, H, W, C, Cout, stride)
+    args = (f, oy, ox, g, w, 3, 3, stride)
+    got = tfk.fused_deform(*args)
+    assert torch.equal(got, tfk.fused_deform(*args))
+    assert _within(got, tfk.fused_deform_reference(*args))
+    grads = tfk.fused_deform_backward(f, oy, ox, g, w, ct, 3, 3, stride)
+    want = tfk.fused_deform_backward_reference(f, oy, ox, g, w, ct, 3, 3, stride)
+    for a, b in zip(grads, want):
+        assert a.shape == b.shape and _within(a, b)
+
+
+@pytest.mark.parametrize("B,stride", [(4, 1), (1, 2)])
+def test_fused_full_width_sum_within_bar(card, B, stride):
+    """P3 of the 448 px head, 256 channels, K C = 2,304 terms a sum, with
+    weights scaled so that |out| reaches about 30: the fp32 sums hold the
+    1e-5 bar at the largest outputs, and repeat bit for bit."""
+    f, oy, ox, g, w, ct = _fused_inputs(np.random.RandomState(12), B, 56, 56, 256, 256, stride)
+    w = (w * 2.5).contiguous()
+    args = (f, oy, ox, g, w, 3, 3, stride)
+    got = tfk.fused_deform(*args)
+    want = tfk.fused_deform_reference(*args)
+    assert 10 < want.abs().max().item() < 100
+    assert _within(got, want) and torch.equal(got, tfk.fused_deform(*args))
+    grads = tfk.fused_deform_backward(f, oy, ox, g, w, ct, 3, 3, stride, need_dw=False)
+    want = tfk.fused_deform_backward_reference(f, oy, ox, g, w, ct, 3, 3, stride, need_dw=False)
+    assert grads[4] is None and want[4] is None
+    for a, b in zip(grads[:4], want[:4]):
+        assert _within(a, b)
+
+
+@pytest.mark.parametrize("B", [4, 1])
+def test_fused_forward_entry_with_large_shared_memory_returns_0(card, B):
+    """At P3, 256 channels, the forward's tile (64 x 128 at batch 4, 32 x
+    128 at batch 1) takes 101 or 59 KB of dynamic shared memory, above the
+    48 KB a launch gets without the attribute: the entry returns 0."""
+    f, oy, ox, g, w, _ = _fused_inputs(np.random.RandomState(13), B, 56, 56, 256, 256, 1)
+    out = torch.full((B, 56, 56, 256), float("nan"), device="cuda")
+    err = tfk._fwd_entry()(f.data_ptr(), oy.data_ptr(), ox.data_ptr(), g.data_ptr(),
+                           w.data_ptr(), out.data_ptr(), B, 56, 56, 256, 56, 56, 9, 3, 256, 3, 1,
+                           torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(out, tfk.fused_deform(f, oy, ox, g, w, 3, 3, 1))
