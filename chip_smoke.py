@@ -57,6 +57,24 @@ and their path:
        counters checked; time the plain versions and, for the single map,
        one `grid_sample` call beside them.
 
+Continual retrieval (SliNet: CLIP ViT-B/16 with LPI prompts), a path that
+runs none of the ten kernels (its attention, products and LayerNorms are
+plain torch ops, as they are XLA code in the JAX package):
+
+   9.  drive the full-width retrieval train step
+       (`lpi_tpu_torch.continual.learner.RetrievalLearner`,
+       `RetrievalConfig()`: 224 px, batch 64, bf16, task 1) for 1 + 20
+       steps on `bench_retrieval`'s inputs: losses finite, the current
+       pool slices moved, the other slices and every tower parameter
+       bit-identical, no kernel launched; median step, samples/s, peak
+       memory, one step profiled; then `cluster_task` and one `evaluate`
+       at full width on a small 2-task set;
+   9b. one fp32 `_losses` and its pool gradient at full width and 2 layers
+       a tower, card vs CPU, TF32 off, relative Frobenius 1e-4;
+   10. the retrieval quality gate (`bench_quality_retrieval`) under
+       deterministic algorithms, held to its bars, printed beside the JAX
+       package's values on a TPU.
+
 Every launch counter is set to 0 just before the path it reads and read
 just after. The last lines are the kernels' JSON record (ten kernels), the
 card's name and power limit, and `{"ok": true, "device": {...}}`.
@@ -884,6 +902,201 @@ def microbenchmark_phase(dk, fk, gen, records):
     padded_records(dk, results, records)
 
 
+# the retrieval quality gate's values from the JAX package on a TPU
+# (`BENCH_r05.json`): quality figures to compare with, not times
+RETRIEVAL_GATE_TPU = {"txt_r1": 75.0, "img_r1": 95.8, "i2t_p1_average": 75.0,
+                      "task_id_acc_visual": 0.875, "task_id_acc_textual": 1.0,
+                      "i2t_forgetting": 6.2}
+RETRIEVAL_STEPS = 20
+BF16_FLOPS = 989e12  # dense bf16 tensor-core peak of an H100 SXM (NVIDIA's data sheet)
+# device kernels by kind, first match wins: products, then casts and copies,
+# then reductions, then other elementwise ops
+KERNEL_KINDS = (("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+                ("copy or cast", ("copy",)),
+                ("reduction", ("reduce", "softmax", "norm")),
+                ("elementwise", ("elementwise",)))
+
+
+def retrieval_step_flops(cfg) -> int:
+    """Operations of the towers' products in one train step: the forward,
+    then the gradients of the activations only (the towers' weights take no
+    gradient, the images none): each linear layer once more, each attention
+    product twice more; the patch stem forward only. Per token and layer
+    the linear layers are 24 D^2 (q, k, v, out, the 4x MLP), per sequence
+    and layer the attention 4 S^2 D. Elementwise ops are not counted."""
+    c, B = cfg.clip, cfg.batch_size
+    patches = (c.image_resolution // c.patch_size) ** 2
+    linear = attn = 0
+    for S, D, L in ((patches + 1 + cfg.lpi.prompt_length, c.vision_width, c.vision_layers),
+                    (c.context_length, c.text_width, c.text_layers)):
+        linear += L * B * S * 24 * D * D
+        attn += L * B * 4 * S * S * D
+    stem = B * patches * 2 * 3 * c.patch_size ** 2 * c.vision_width
+    return 2 * linear + 3 * attn + stem
+
+
+def retrieval_train_phase(dk, fk):
+    """Phase 9: the full-width continual-retrieval step (SliNet on
+    `RetrievalConfig()`: CLIP ViT-B/16 at 224 px, 213 vision tokens, LPI
+    prompts; batch 64, bf16) at task 1 on the bench's inputs, 1 + 20 steps
+    of `train_session`'s step: losses finite, the current slice moved,
+    every other slice and every tower parameter bit-equal to its start, no
+    deform kernel launched; the median step, samples/s, peak memory, one
+    profiled step; then `cluster_task` on two small sessions and one
+    `evaluate` at full width on a 2-task `synthetic_eval` set."""
+    from lpi_tpu_torch.bench import retrieval_inputs
+    from lpi_tpu_torch.config import RetrievalConfig
+    from lpi_tpu_torch.continual.learner import RetrievalLearner
+    from lpi_tpu_torch.data.retrieval import synthetic_eval, synthetic_session
+    from lpi_tpu_torch.data.tokenizer import ClipTokenizer
+
+    cfg = RetrievalConfig()
+    t = time.perf_counter()
+    learner = RetrievalLearner(cfg, generator=torch.Generator().manual_seed(0), device="cuda")
+    log(f"retrieval: learner built in {time.perf_counter() - t:.3f} s; "
+        f"{sum(p.numel() for p in learner.frozen.values())} frozen and "
+        f"{sum(p.numel() for p in learner.pools.values())} pool parameters")
+    batch = learner.to_device(retrieval_inputs(cfg))
+    before = {n: p.detach().clone() for n, p in learner.model.named_parameters()}
+    step = learner.make_train_step(TRAIN_TASK, steps_per_epoch=100, epochs=cfg.epochs)
+    reset_counts(dk, fk)
+    times, metrics = [], {}
+    for i in range(1 + RETRIEVAL_STEPS):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        for k, v in metrics.items():
+            if not np.isfinite(v.item()):
+                raise AssertionError(f"retrieval step {i}: {k} = {v.item()}")
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for k, v in launch_counts(dk, fk).items() if v}
+    if launches:
+        raise AssertionError(f"retrieval step launched deform kernels: {launches}")
+    med = statistics.median(times[1:])
+    log(f"retrieval step on {card_line()}: median {med:.3f} ms over {RETRIEVAL_STEPS} steps "
+        f"after the first ({times[0]:.3f} ms), {1e3 * cfg.batch_size / med:.3f} samples/s, "
+        f"all {[round(x, 3) for x in times]}")
+    log("retrieval step: " + ", ".join(f"{k} {v.item():.6f}" for k, v in metrics.items()))
+    log(f"retrieval step: peak device memory {peak / 2**30:.3f} GiB (max_memory_allocated)")
+    moved = 0
+    for name, p in learner.model.named_parameters():
+        old = before[name]
+        if name in learner.pools:
+            others = [i for i in range(cfg.total_sessions) if i != TRAIN_TASK]
+            if not torch.equal(p[others], old[others]):
+                raise AssertionError(f"{name}: slices other than task {TRAIN_TASK} moved")
+            moved += not torch.equal(p[TRAIN_TASK], old[TRAIN_TASK])
+        elif not torch.equal(p, old):
+            raise AssertionError(f"tower parameter {name} moved")
+    if moved != len(learner.pools):
+        raise AssertionError(f"{moved} of {len(learner.pools)} pool leaves moved their "
+                             f"task-{TRAIN_TASK} slice")
+    log(f"retrieval step: every tower parameter and the other tasks' slices bit-identical; "
+        f"all {moved} pool leaves moved their task-{TRAIN_TASK} slice")
+    del before
+    kernels = _profile(lambda: step(batch), "retrieval train step")
+    groups = {}
+    for e in kernels:
+        key = e.key.lower()
+        kind = next((k for k, words in KERNEL_KINDS if any(w in key for w in words)), "other")
+        n, ms = groups.get(kind, (0, 0.0))
+        groups[kind] = (n + e.count, ms + e.self_device_time_total / 1e3)
+    log("profile retrieval step by kind: " + ", ".join(
+        f"{k} {ms:.3f} ms x{n}" for k, (n, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1])))
+    flops = retrieval_step_flops(cfg)
+    floor = flops / BF16_FLOPS * 1e3
+    busy = sum(ms for _, ms in groups.values())
+    gemm = groups.get("gemm", (0, 0.0))[1]
+    log(f"retrieval step: {flops / 1e12:.3f} TFLOP of tower products, {floor:.3f} ms at the "
+        f"bf16 peak: {100 * floor / med:.1f}% of the median step"
+        + (f", {100 * floor / busy:.1f}% of the profiled device time, "
+           f"{100 * floor / gemm:.1f}% of its products' time" if gemm else ""))
+
+    t = time.perf_counter()
+    tok = ClipTokenizer()
+    res = cfg.clip.image_resolution
+    for task in range(2):
+        learner.cluster_task(synthetic_session(task, 16, res, tok, cfg.clip.n_ctx))
+    out = learner.evaluate(synthetic_eval(2, 8, 1, res, tok, cfg.clip.n_ctx), num_tasks=2)
+    summary = {k: float(v) for k, v in out["summary"].items()}
+    acc = out["task_id_accuracy"]
+    if not (set(out["i2t"]) == set(out["t2i"]) == {0, 1}
+            and all(np.isfinite(v) and 0 <= v <= 100 for v in summary.values())
+            and all(0 <= v <= 1 for v in acc.values())):
+        raise AssertionError(f"bad retrieval evaluation: {out}")
+    log(f"retrieval evaluate (random weights, 2 tasks, 16 images, 16 captions): "
+        f"{time.perf_counter() - t:.3f} s with the two cluster_task calls; txt R@1 "
+        f"{summary['txt_r1']:.1f}, img R@1 {summary['img_r1']:.1f}, task-ID {acc}")
+    del learner, step, batch
+    torch.cuda.empty_cache()
+
+
+def retrieval_gradient_phase():
+    """Phase 9b: one fp32 `_losses` at task 1 and the gradient of the
+    task-1 slices of the pools, at full width and 2 layers a tower, batch
+    8 of the bench's inputs, on the card and on the CPU from the same
+    seeded weights, TF32 off: each loss term and the concatenated gradient
+    within relative Frobenius 1e-4."""
+    from lpi_tpu_torch.bench import retrieval_inputs
+    from lpi_tpu_torch.config import RetrievalConfig
+    from lpi_tpu_torch.continual.keys import exact_fp32
+    from lpi_tpu_torch.continual.learner import RetrievalLearner
+
+    base = RetrievalConfig()
+    cfg = dataclasses.replace(base, dtype="float32", batch_size=8, clip=dataclasses.replace(
+        base.clip, vision_layers=2, text_layers=2))
+    batch = retrieval_inputs(cfg)
+    out = {}
+    for device in ("cuda", "cpu"):
+        learner = RetrievalLearner(cfg, generator=torch.Generator().manual_seed(0),
+                                   device=device)
+        t = time.perf_counter()
+        with exact_fp32():
+            total, losses = learner._losses(learner.to_device(batch), TRAIN_TASK)
+            names = sorted(learner.pools)
+            grads = torch.autograd.grad(total, [learner.pools[n] for n in names],
+                                        allow_unused=True)
+        out[device] = ({k: v.item() for k, v in losses.items()} | {"total": total.item()},
+                       {n: g[TRAIN_TASK].double().cpu().numpy()
+                        for n, g in zip(names, grads) if g is not None})
+        log(f"retrieval fp32 losses + backward on {device}: {time.perf_counter() - t:.3f} s")
+        del learner, grads
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = out["cuda"], out["cpu"]
+    for k in sorted(m_cpu):
+        if not np.isfinite(m_gpu[k]):
+            raise AssertionError(f"retrieval fp32 {k} not finite on the card")
+        assert_close(m_gpu[k], m_cpu[k], f"retrieval {k}", atol=np.inf)
+    if sorted(g_gpu) != sorted(g_cpu):
+        raise AssertionError(f"pool gradients present: {sorted(g_gpu)} vs {sorted(g_cpu)}")
+    assert_close(np.concatenate([g_gpu[n].ravel() for n in sorted(g_gpu)]),
+                 np.concatenate([g_cpu[n].ravel() for n in sorted(g_cpu)]),
+                 f"retrieval task-{TRAIN_TASK} pool gradient", atol=np.inf)
+
+
+def retrieval_gate_phase(dk, fk):
+    """Phase 10: the retrieval quality gate (`bench_quality_retrieval`) on
+    the card under deterministic algorithms, held to its bars; no deform
+    kernel launched."""
+    from lpi_tpu_torch.bench import RETRIEVAL_BARS, bench_quality_retrieval, \
+        retrieval_quality_ok
+
+    reset_counts(dk, fk)
+    t = time.perf_counter()
+    out = bench_quality_retrieval("cuda")
+    secs = time.perf_counter() - t
+    launches = {k: v for k, v in launch_counts(dk, fk).items() if v}
+    log(f"retrieval gate on {card_line()} in {secs:.3f} s: "
+        + ", ".join(f"{k} {v} (JAX package on a TPU: {RETRIEVAL_GATE_TPU[k]})"
+                    for k, v in out.items()))
+    if launches:
+        raise AssertionError(f"retrieval gate launched deform kernels: {launches}")
+    if not retrieval_quality_ok(out):
+        raise AssertionError(f"retrieval gate: {out} misses the bars {RETRIEVAL_BARS}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -983,6 +1196,17 @@ def main() -> int:
     t = time.perf_counter()
     microbenchmark_phase(dk, fk, gen, records)
     log(f"phase 8: {time.perf_counter() - t:.3f} s")
+
+    # ---- continual retrieval: the SliNet step, its gradient, its gate ----
+    t = time.perf_counter()
+    retrieval_train_phase(dk, fk)
+    log(f"phase 9: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    retrieval_gradient_phase()
+    log(f"phase 9b: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    retrieval_gate_phase(dk, fk)
+    log(f"phase 10: {time.perf_counter() - t:.3f} s")
 
     for rec in records.values():
         kinds = rec.pop("bound_kinds")

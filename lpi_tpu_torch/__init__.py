@@ -1,9 +1,12 @@
-"""LPI grounding in PyTorch with CUDA kernels for Hopper.
+"""LPI grounding and continual retrieval in PyTorch with CUDA kernels for
+Hopper.
 
 The PyTorch counterpart of `lpi_tpu`, which stays the reference: the same
-configs and model, ported slice by slice. This package imports neither JAX
+configs and models, ported slice by slice. This package imports neither JAX
 nor `lpi_tpu`. Entry points: `lpi_tpu_torch.serve.predictor.GroundingPredictor`
 (serving), `lpi_tpu_torch.continual.grounding_learner.GroundingLearner`
-(training and evaluation) and `lpi_tpu_torch.bench.bench_quality_grounding`
-(the grounding quality gate).
+(grounding training and evaluation),
+`lpi_tpu_torch.continual.learner.RetrievalLearner` (continual retrieval:
+SliNet, CLIP ViT-B/16 with LPI prompts) and `lpi_tpu_torch.bench`
+(`bench_retrieval` and the two quality gates).
 """

@@ -1,20 +1,32 @@
-"""The grounding quality gate on the port (counterpart of `bench.py`'s
-`gate_grounding_config` and `bench_quality_grounding`).
+"""The port's benchmark and quality gates (counterpart of `bench.py`).
 
-A tiny GLIP-T + LPI (channels 16, GroupNorm FPN, 64 px) is pretrained with
-all parameters on a mixed set of the synthetic grounding tasks (the role
-GLIP-T(A) pretraining plays for the real recipe), then trained one task at
-a time with only that task's prompts, and evaluated after every task over
-the tasks seen so far: RefExp P@1 and P@5 (GIoU >= 0.5), task-ID accuracy
-and forgetting (a task's best P@1 at an earlier checkpoint minus its final
-P@1, averaged over the tasks before the last). The bars the gate holds a
-run to are `QUALITY_BARS`.
+* `bench_retrieval`: samples/s of the full-width continual-retrieval train
+  step (SliNet: CLIP ViT-B/16 at 224 px with LPI prompts, batch 64, bf16),
+  the reference's headline `retrieval_train_samples_per_sec_per_chip`:
+  `bench.py:bench_retrieval`'s inputs, one warm step, 50 dependent steps,
+  one host fetch.
+* `bench_quality_retrieval`: the retrieval quality gate, `bench.py`'s
+  `bench_quality` leg: a tiny CLIP (32 px, patch 8, width 64, 3 layers a
+  tower, fp32) pretrained with all parameters for 600 steps on the mixed
+  correlated synthetic set, then 3 sessions of prompts, each evaluated over
+  the sessions seen so far; txt R@1, img R@1 and the i2t P@1 average >= 50,
+  both task-ID accuracies >= 0.8, i2t forgetting <= 10 (`RETRIEVAL_BARS`).
+* `bench_quality_grounding`: the grounding gate, `gate_grounding_config`
+  and `bench_quality_grounding`: a tiny GLIP-T + LPI (channels 16,
+  GroupNorm FPN, 64 px) pretrained with all parameters on a mixed set of
+  the synthetic grounding tasks, then trained one task at a time with only
+  that task's prompts, and evaluated after every task over the tasks seen
+  so far: RefExp P@1 and P@5 (GIoU >= 0.5), task-ID accuracy and
+  forgetting (a task's best P@1 at an earlier checkpoint minus its final
+  P@1, averaged over the tasks before the last); bars `QUALITY_BARS`.
 
-A run uses PyTorch's deterministic algorithms (`deterministic`), as XLA's
-programs are on the TPU: with the card's default atomics in its backward
-passes the task-ID accuracy of one recipe moved between 0.639 and 0.917
-from run to run on an H100, so a bar on one run would check luck, not the
-port (`scripts/torch_gate_spread.py`).
+The gates run under PyTorch's deterministic algorithms (`deterministic`),
+as XLA's programs are on the TPU: with the card's default atomics in its
+backward passes the grounding task-ID accuracy of one recipe moved between
+0.639 and 0.917 from run to run on an H100, so a bar on one run would check
+luck, not the port (`scripts/torch_gate_spread.py`).
+
+    python -m lpi_tpu_torch.bench       # on the card: one JSON line
 
     from lpi_tpu_torch.bench import bench_quality_grounding
     bench_quality_grounding()                 # on the card, deform_impl "pallas"
@@ -25,16 +37,24 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import os
+import sys
+import time
+from typing import Optional
 
 import numpy as np
 import torch
 
-from lpi_tpu_torch.config import (ATSSConfig, BertConfig, DyHeadConfig, GroundingConfig,
-                                  LPIPromptConfig, SwinConfig)
+from lpi_tpu_torch.config import (ATSSConfig, BertConfig, CLIPConfig, DyHeadConfig,
+                                  GroundingConfig, LPIPromptConfig, RetrievalConfig,
+                                  SwinConfig)
 
 QUALITY_BARS = {"grounding_p1": 30.0, "grounding_task_id_acc": 0.8,
                 "grounding_forgetting": 15.0}
+RETRIEVAL_BARS = {"r1": 50.0, "task_id": 0.8, "forgetting": 10.0}
+RETRIEVAL_GATE_TASKS = 3
+SOT, EOT = 49406, 49407  # CLIP's start- and end-of-text ids (`bench.py:bench_retrieval`)
 
 
 def gate_grounding_config(n_tasks: int = 3) -> GroundingConfig:
@@ -128,3 +148,133 @@ def quality_ok(result: dict) -> bool:
     return (result["grounding_p1"] >= QUALITY_BARS["grounding_p1"]
             and result["grounding_task_id_acc"] >= QUALITY_BARS["grounding_task_id_acc"]
             and result["grounding_forgetting"] <= QUALITY_BARS["grounding_forgetting"])
+
+
+def retrieval_inputs(cfg: RetrievalConfig) -> dict:
+    """The retrieval bench's batch (`bench.py:bench_retrieval`): images
+    N(0, 1) and token ids U[1, 49000) from `RandomState(0)`, SOT first and
+    EOT last."""
+    rng = np.random.RandomState(0)
+    res, batch = cfg.clip.image_resolution, cfg.batch_size
+    images = rng.randn(batch, res, res, 3).astype(np.float32)
+    ids = rng.randint(1, 49000, size=(batch, cfg.clip.context_length)).astype(np.int32)
+    ids[:, 0] = SOT
+    ids[:, -1] = EOT
+    return {"images": images, "token_ids": ids}
+
+
+def bench_retrieval(device="cuda", cfg: Optional[RetrievalConfig] = None,
+                    iters: int = 50) -> float:
+    """Samples/s of the masked train step at task 0 on `cfg` (default
+    `RetrievalConfig()`: full ViT-B/16 + LPI prompts, batch 64, bf16) and
+    `retrieval_inputs`: one warm step, `iters` dependent steps, then one
+    host fetch (the barrier)."""
+    from lpi_tpu_torch.continual.learner import RetrievalLearner
+
+    cfg = RetrievalConfig() if cfg is None else cfg
+    learner = RetrievalLearner(cfg, device=device)
+    step = learner.make_train_step(task_id=0, steps_per_epoch=100, epochs=cfg.epochs)
+    b = learner.to_device(retrieval_inputs(cfg))
+    float(step(b)["total"])
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        metrics = step(b)
+    float(metrics["total"])  # waits for the whole dependent chain
+    return cfg.batch_size * iters / (time.perf_counter() - t0)
+
+
+def gate_retrieval_config() -> RetrievalConfig:
+    """The retrieval gate's tiny config (`bench.py:180-189`): CLIP at 32 px,
+    patch 8, width 64, 3 layers a tower, embed 32, 4 context tokens; LPI
+    prompts of length 4, depth 3, rank 2; 4 epochs a session, batch 8,
+    lr 0.05, k = 2 task-key clusters, fp32."""
+    return RetrievalConfig(
+        clip=CLIPConfig(
+            image_resolution=32, patch_size=8, vision_width=64,
+            vision_layers=3, vision_heads=4, text_width=64, text_layers=3,
+            text_heads=4, vocab_size=49408, context_length=77, embed_dim=32,
+            n_ctx=4),
+        lpi=LPIPromptConfig(prompt_length=4, prompt_depth=3, prompt_rank=2),
+        total_sessions=RETRIEVAL_GATE_TASKS, epochs=4, batch_size=8, lr=0.05,
+        visual_dim=64, textual_dim=64, num_key_clusters=2, dtype="float32")
+
+
+def bench_quality_retrieval(device="cuda", pretrain_steps: int = 600,
+                            epochs: Optional[int] = None) -> dict:
+    """The retrieval gate's run with deterministic algorithms: pretrain
+    `pretrain_steps` at lr 1e-3 on `synthetic_correlated_pretrain`, then
+    3 sessions of `synthetic_correlated_session` (24 samples), each
+    evaluated on `synthetic_correlated_eval` over the sessions so far. Runs
+    on `device`, the card unless asked otherwise. -> task_id_acc_visual,
+    task_id_acc_textual, txt_r1, img_r1, i2t_p1_average, i2t_forgetting,
+    rounded as `bench.py` rounds them."""
+    with deterministic():
+        return _retrieval_gate_run(device, pretrain_steps, epochs)
+
+
+def _retrieval_gate_run(device, pretrain_steps, epochs) -> dict:
+    from lpi_tpu_torch.continual.learner import RetrievalLearner
+    from lpi_tpu_torch.data.retrieval import (synthetic_correlated_eval,
+                                              synthetic_correlated_pretrain,
+                                              synthetic_correlated_session)
+    from lpi_tpu_torch.data.tokenizer import ClipTokenizer
+    from lpi_tpu_torch.eval.retrieval import aggregate_results
+
+    n_tasks = RETRIEVAL_GATE_TASKS
+    cfg = gate_retrieval_config()
+    tok = ClipTokenizer()
+    learner = RetrievalLearner(cfg, task_sim_matrix=np.eye(n_tasks), device=device)
+    learner.pretrain(synthetic_correlated_pretrain(n_tasks, 24, 32, tok, cfg.clip.n_ctx),
+                     steps=pretrain_steps, lr=1e-3)
+    results = {}
+    for t in range(n_tasks):
+        learner.train_session(synthetic_correlated_session(t, 24, 32, tok, cfg.clip.n_ctx),
+                              epochs=epochs)
+        ev = synthetic_correlated_eval(t + 1, 8, 32, tok, cfg.clip.n_ctx)
+        results[t] = learner.evaluate(ev, num_tasks=t + 1)
+    final = results[n_tasks - 1]
+    agg = aggregate_results(results, direction="i2t", k_index=0)
+    return {
+        "task_id_acc_visual": round(final["task_id_accuracy"]["visual"], 3),
+        "task_id_acc_textual": round(final["task_id_accuracy"]["textual"], 3),
+        "txt_r1": round(float(final["summary"]["txt_r1"]), 1),
+        "img_r1": round(float(final["summary"]["img_r1"]), 1),
+        "i2t_p1_average": round(agg["average"], 1),
+        "i2t_forgetting": round(agg["forgetting"], 1),
+    }
+
+
+def retrieval_quality_ok(result: dict) -> bool:
+    """Whether a run meets the retrieval gate's bars."""
+    b = RETRIEVAL_BARS
+    return (result["txt_r1"] >= b["r1"] and result["img_r1"] >= b["r1"]
+            and result["i2t_p1_average"] >= b["r1"]
+            and result["task_id_acc_visual"] >= b["task_id"]
+            and result["task_id_acc_textual"] >= b["task_id"]
+            and result["i2t_forgetting"] <= b["forgetting"])
+
+
+def main() -> int:
+    """One JSON line with the reference's keys: the retrieval step's
+    samples/s, and `quality` (both gates, their bars, `quality_ok`), beside
+    the card's name. Exits 1 without a card."""
+    if not torch.cuda.is_available():
+        print("lpi_tpu_torch.bench: no CUDA device", file=sys.stderr)
+        return 1
+    sps = bench_retrieval()
+    quality = bench_quality_retrieval()
+    grounding = bench_quality_grounding()
+    quality["quality_bars"] = {**RETRIEVAL_BARS, "grounding_p1": QUALITY_BARS["grounding_p1"],
+                               "grounding_task_id": QUALITY_BARS["grounding_task_id_acc"],
+                               "grounding_forgetting": QUALITY_BARS["grounding_forgetting"]}
+    quality["quality_ok"] = retrieval_quality_ok(quality) and quality_ok(grounding)
+    quality.update(grounding)
+    print(json.dumps({"metric": "retrieval_train_samples_per_sec_per_chip",
+                      "value": round(sps, 2), "unit": "samples/s",
+                      "device": torch.cuda.get_device_name(0), "quality": quality,
+                      "quality_ok": quality["quality_ok"]}), flush=True)
+    return 0 if quality["quality_ok"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -15,6 +15,16 @@
 * the prompt and interaction pools and the head's scalars are copied as
   they are.
 
+`slinet_params_from_jax(params)` maps the Flax params tree of
+`lpi_tpu.models.clip.SliNet` to a `state_dict` of
+`lpi_tpu_torch.models.clip.SliNet`: each tower's scanned
+`transformer/block` leaves carry a leading [layers] axis and become the
+per-layer modules `transformer.{i}`; Dense kernels are transposed, the
+patch stem `conv1` goes from HWIO to OIHW, LayerNorm `scale` becomes
+`weight`; `proj` and `text_projection` stay [in, out] (the towers compute
+`x @ proj`); the embeddings, `logit_scale`, the CP factors and `ctx_pool`
+are copied.
+
 `keys_from_jax(centers, valid)` builds the port's `TaskKeys`. Nothing here
 imports JAX: the caller hands over numpy arrays.
 """
@@ -37,6 +47,7 @@ _RENAMES = (
     (re.compile(r"^head/tower(\d+)/"), r"head/towers/\1/"),
 )
 _STAGE = re.compile(r"^encoder/stage(\d+)/(vblock|tlayer)(\d)/(.*)$")
+_TOWER = re.compile(r"^(clip/(?:visual|text)/transformer)/block/(.*)$")
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -59,7 +70,16 @@ def _leaf(path: str, value: np.ndarray):
         name, value = "weight", value.T
     elif name == "scale":
         name = "weight"
-    return f"{head}/{name}".replace("/", "."), value
+    return f"{head}/{name}".lstrip("/").replace("/", "."), value
+
+
+def _to_state(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """{Flax leaf path: array} -> fp32 state_dict entries (`_leaf`)."""
+    state = {}
+    for path, value in flat.items():
+        name, arr = _leaf(path, value)
+        state[name] = torch.tensor(np.ascontiguousarray(arr), dtype=torch.float32)
+    return state
 
 
 def params_from_jax(params: Mapping, depths: Sequence[int] = (2, 2, 6, 2)
@@ -80,11 +100,20 @@ def params_from_jax(params: Mapping, depths: Sequence[int] = (2, 2, 6, 2)
         for pattern, repl in _RENAMES:
             path = pattern.sub(repl, path)
         flat[path] = value
-    state = {}
-    for path, value in flat.items():
-        name, arr = _leaf(path, value)
-        state[name] = torch.tensor(np.ascontiguousarray(arr), dtype=torch.float32)
-    return state
+    return _to_state(flat)
+
+
+def slinet_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax SliNet params (nested dict of arrays) -> state_dict."""
+    flat = {}
+    for path, value in _flatten(params).items():
+        m = _TOWER.match(path)
+        if m:
+            for i in range(value.shape[0]):
+                flat[f"{m[1]}/{i}/{m[2]}"] = value[i]
+        else:
+            flat[path] = value
+    return _to_state(flat)
 
 
 def keys_from_jax(centers, valid) -> TaskKeys:

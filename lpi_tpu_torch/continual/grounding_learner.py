@@ -23,16 +23,15 @@ task, with the task-ID accuracy beside it.
 from __future__ import annotations
 
 import itertools
-import math
 import time
-from dataclasses import dataclass
-from typing import Callable, Dict, List, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from lpi_tpu_torch.config import GroundingConfig
-from lpi_tpu_torch.continual.common import freeze
+from lpi_tpu_torch.continual.common import (AdamState, adamw_update, clip_by_global_norm,
+                                             epoch_lrs, freeze)
 from lpi_tpu_torch.continual.keys import TaskKeys, exact_fp32, infer_task_ids
 from lpi_tpu_torch.data.grounding import GroundingTaskSet
 from lpi_tpu_torch.eval.refexp import RefExpEvaluator
@@ -43,59 +42,10 @@ from lpi_tpu_torch.models.glip.postprocess import atss_postprocess_batch
 from lpi_tpu_torch.ops.kmeans import kmeans
 
 POOL_KEYS = ("prompts", "interact")
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 _BATCH_DTYPES = {"images": torch.float32, "input_ids": torch.long,
                  "attention_mask": torch.float32, "gt_boxes": torch.float32,
                  "gt_valid": torch.bool, "positive_map": torch.float32}
-
-
-@dataclass
-class AdamState:
-    """optax `scale_by_adam` state: first and second moments, step count."""
-    mu: List[torch.Tensor]
-    nu: List[torch.Tensor]
-    count: int = 0
-
-    @staticmethod
-    def zeros(params: List[torch.Tensor]) -> "AdamState":
-        return AdamState([torch.zeros_like(p) for p in params],
-                         [torch.zeros_like(p) for p in params])
-
-
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
-    """optax's rule: g if ||g|| < max_norm, else g / ||g|| * max_norm (no
-    epsilon), decided on the device."""
-    norm = torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
-    return [torch.where(norm < max_norm, g, (g / norm.to(g.dtype)) * max_norm)
-            for g in grads]
-
-
-@torch.no_grad()
-def adamw_update(params: List[torch.Tensor], grads: List[torch.Tensor], state: AdamState,
-                 lr: float, weight_decay: float,
-                 masks: Optional[List[torch.Tensor]] = None) -> None:
-    """One optax `adamw` step applied in place: u = -lr (m_hat / (sqrt(v_hat)
-    + eps) + wd p), times `masks` where given."""
-    state.count += 1
-    bc1 = float(np.float32(1) - np.float32(ADAM_B1) ** np.float32(state.count))
-    bc2 = float(np.float32(1) - np.float32(ADAM_B2) ** np.float32(state.count))
-    for i, (p, g) in enumerate(zip(params, grads)):
-        mu = (1 - ADAM_B1) * g + ADAM_B1 * state.mu[i]
-        nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * state.nu[i]
-        state.mu[i], state.nu[i] = mu, nu
-        u = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
-        u = -lr * (u + weight_decay * p)
-        if masks is not None:
-            u = u * masks[i]
-        p.add_(u)
-
-
-def epoch_lrs(base_lr: float, epochs: int) -> List[float]:
-    """Cosine annealing stepped once per epoch: lr 0.5 (1 + cos(pi e / E))
-    for e = 0..E."""
-    return [float(np.float32(base_lr * 0.5 * (1.0 + math.cos(math.pi * e / epochs))))
-            for e in range(epochs + 1)]
 
 
 class GroundingLearner:

@@ -1,5 +1,5 @@
 """Contrastive losses of the LPI mechanism (counterpart of
-`lpi_tpu/losses/clip_loss.py`, the parts the grounding train step uses).
+`lpi_tpu/losses/clip_loss.py`, the parts the train steps use).
 
 * `clip_loss`: symmetric cross-entropy over a square logits matrix with
   diagonal positives.
@@ -9,6 +9,8 @@
   BCE-with-logits) and the diagonal forced to +inf before the first sigmoid.
 * `task_prompt_loss_masked`: the inter-task loss over the flattened prompt
   stacks of tasks 0..task_id; 0 at task 0.
+* `alignment_loss`: the retrieval cross-modal prompt alignment, a symmetric
+  InfoNCE over the layer-by-layer matrix of channel-mean prompts.
 """
 
 from __future__ import annotations
@@ -69,14 +71,26 @@ def nt_bxent_loss_masked(x: torch.Tensor, target: torch.Tensor, valid: torch.Ten
 
 
 def task_prompt_loss_masked(visual_stack: torch.Tensor, textual_stack: torch.Tensor,
-                            task_relation: torch.Tensor, task_id: int,
+                            task_relation: torch.Tensor, task_id,
                             temperature: float = 0.001) -> torch.Tensor:
     """Inter-task loss over the prompt stacks [T, L*P*D] of tasks
     0..task_id: the mean of the visual and textual `nt_bxent_loss_masked`
-    terms; exactly 0 at task 0."""
+    terms; exactly 0 at task 0. `task_id` is an int or a 0-d integer tensor
+    on the stacks' device."""
     n = visual_stack.shape[0]
     valid = torch.arange(n, device=visual_stack.device) <= task_id
     loss = 0.5 * (nt_bxent_loss_masked(visual_stack, task_relation, valid, temperature)
                   + nt_bxent_loss_masked(textual_stack, task_relation, valid, temperature))
-    live = torch.full((), task_id >= 1, dtype=torch.bool, device=loss.device)
+    live = torch.as_tensor(task_id >= 1, device=loss.device)
     return torch.where(live, loss, torch.zeros_like(loss))
+
+
+def alignment_loss(visual_prompt: torch.Tensor, textual_prompt: torch.Tensor,
+                   temperature: float = 0.01) -> torch.Tensor:
+    """Cross-modal prompt alignment in fp32: prompts [L, P, D] are averaged
+    over channels to [L, P] and divided by the temperature; the [L, L]
+    layer-by-layer matrix gets `clip_loss`. Unweighted: callers apply the
+    0.1."""
+    v = visual_prompt.float().mean(-1) / temperature
+    t = textual_prompt.float().mean(-1) / temperature
+    return clip_loss(v @ t.T)

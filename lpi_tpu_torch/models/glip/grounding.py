@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 import torch.nn as nn
 
@@ -27,6 +26,7 @@ from lpi_tpu_torch.models.glip.anchors import concat_anchors
 from lpi_tpu_torch.models.glip.fpn import FPN
 from lpi_tpu_torch.models.glip.fused import FusedDualEncoder
 from lpi_tpu_torch.models.glip.vldyhead import TunableLinear, VLDyHead
+from lpi_tpu_torch.models.layers import lecun_normal_, normal_, truncated_normal_
 from lpi_tpu_torch.prompts.pools import DecomposedPromptPool
 
 
@@ -142,16 +142,12 @@ def init_parameters(model: GroundedVLModel, generator: torch.Generator) -> None:
     c = model.cfg
     prior = VLDyHead.prior_bias(c.dyhead)
     bound = 1.0 / math.sqrt(c.lpi.interact_rank)
-    cut = 0.5 * (1.0 + math.erf(-math.sqrt(2.0)))  # P(N(0, 1) < -2)
 
     def normal(p, std):
-        p.copy_(torch.randn(p.shape, generator=generator) * std)
+        normal_(p, std, generator)
 
     def truncated(p, std):
-        """std times a standard normal cut at +-2, by the inverse CDF."""
-        u = cut + (1.0 - 2.0 * cut) * torch.rand(p.shape, generator=generator,
-                                                  dtype=torch.float64)
-        p.copy_(math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0) * std)
+        truncated_normal_(p, std, generator)
 
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -176,8 +172,8 @@ def init_parameters(model: GroundedVLModel, generator: torch.Generator) -> None:
             p.fill_(prior)
         elif leaf == "weight" and p.dim() == 4 and name.startswith("head."):
             normal(p, 0.01)
-        elif leaf == "weight" and p.dim() >= 2:  # lecun_normal's 0.8796 undoes the cut
-            truncated(p, 1.0 / math.sqrt(int(np.prod(p.shape[1:]))) / 0.87962566103423978)
+        elif leaf == "weight" and p.dim() >= 2:
+            lecun_normal_(p, generator)
         elif leaf == "weight":  # LayerNorm / GroupNorm scales
             p.fill_(1.0)
         else:

@@ -9,11 +9,35 @@ in fp32 and return fp32; callers cast, as the JAX modules do.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+_CUT = 0.5 * (1.0 + math.erf(-math.sqrt(2.0)))  # P(N(0, 1) < -2)
+
+
+def normal_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """Fill `p` with N(0, std^2) draws from `generator` (Flax `normal`)."""
+    p.copy_(torch.randn(p.shape, generator=generator) * std)
+
+
+def truncated_normal_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """Fill `p` with std times a standard normal cut at +-2, by the inverse
+    CDF (Flax `truncated_normal`)."""
+    u = _CUT + (1.0 - 2.0 * _CUT) * torch.rand(p.shape, generator=generator,
+                                                dtype=torch.float64)
+    p.copy_(math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0) * std)
+
+
+def lecun_normal_(p: torch.Tensor, generator: torch.Generator) -> None:
+    """Flax's default kernel init for a weight laid out [out, in, ...]:
+    variance 1/fan_in, the cut at +-2 undone by the 0.8796 rescale."""
+    truncated_normal_(p, 1.0 / math.sqrt(math.prod(p.shape[1:])) / 0.87962566103423978,
+                      generator)
 
 
 def _compute_dtype(x: torch.Tensor, param: torch.Tensor,
