@@ -9,22 +9,32 @@ non-zero):
 2. hold each forward kernel against its plain PyTorch version on the card at
    every shape the 448 px grounding predictor (batch 1) and train step
    (batch 4) give it, in fp32 and bf16, with one launch per call and two
-   calls equal bit for bit, time both (CUDA graphs, median of 20) and give
+   calls equal bit for bit, time both (CUDA graphs; the kernel's median of
+   20 replays, the plain version's of 5) and give
    each level's share of the bound (the rows of h that carry weight);
    2b. the same for the two backward kernels at the train step's shapes,
        with one launch per call, two calls equal bit for bit and each
        level's share of the bound;
 3. drive the full-width GLIP-T + LPI grounding predictor
    (`lpi_tpu_torch.serve.predictor.GroundingPredictor`, `GroundingConfig()`
-   defaults, seeded random weights and task keys) through a few requests,
-   with the kernels' launch counters checked, and profile one request;
+   defaults, seeded random weights and task keys) through 1 + 11 requests
+   eagerly and 1 + 11 captured (its task-id pass and forward replayed as
+   CUDA graphs), with the kernels' launch counters checked, one request of
+   each profiled with its deform launches read from the kernel names, the
+   median latency of each, and equal task ids and detections;
 4. run the same model in fp32 on the card and on the CPU (plain versions)
    and compare the head outputs and the inferred task id;
 5. drive the full-width continual-grounding train step
    (`lpi_tpu_torch.continual.grounding_learner.GroundingLearner`, batch 4,
-   448 px, bf16, task 1) for 1 + 10 steps with the launch counters checked,
-   the frozen parameters and the other tasks' pool rows checked unchanged,
-   and one step profiled;
+   448 px, bf16, task 1, offsets of a trained model's size from
+   `lpi_tpu_torch.bench.honest_offsets`) for 1 + 10 steps eagerly and 1 +
+   10 captured from the same starting state, under deterministic
+   algorithms: the launch counters, every metric and pool leaf captured
+   against eager in bits (else the repo's bar, the largest error printed),
+   the frozen parameters and the other tasks' pool rows unchanged, and per
+   mode the median step, samples/s, a profiled step's busy share and
+   kernels, peak memory; the replayed step's deform launches read from
+   the kernel names (54 / 24 / 54 / 24);
 6. compute one fp32 `_losses` and its pool gradients at batch 1 on the card
    and on the CPU from the same seeded weights and compare them.
 
@@ -38,13 +48,14 @@ The fused deformable conv (`deform_impl="fused"`) and the quality gate:
    3b. drive the fused predictor (bf16, full width) through a few requests
        with its launch counter checked, profile one, and compare the fp32
        fused model with the fp32 "pallas" route on the card;
-   5b. drive the fused train step as phase 5 drives the other, profile one
-       step (one kernel of each kind per call; the record keeps the
-       kernels' device ms of that step), and compare one fp32 `_losses` and
-       its pool gradient, card vs CPU, as phase 6 does;
+   5b. drive the fused train step as phase 5 drives the other (78 / 78
+       launches by kernel name in the replayed step), profile one step
+       (one kernel of each kind per call; the record keeps the kernels'
+       device ms of that step), and compare one fp32 `_losses` and its
+       pool gradient, card vs CPU, as phase 6 does;
    7.  run the grounding quality gate (`lpi_tpu_torch.bench`) with the
        gate's own config and with `deform_impl="fused"`, each held to the
-       gate's bars.
+       gate's bars; its sessions run the captured step.
 
 The pre-padded window sums (`window_accumulate_taps`, `window_accumulate`)
 and their path:
@@ -64,16 +75,29 @@ plain torch ops, as they are XLA code in the JAX package):
    9.  drive the full-width retrieval train step
        (`lpi_tpu_torch.continual.learner.RetrievalLearner`,
        `RetrievalConfig()`: 224 px, batch 64, bf16, task 1) for 1 + 20
-       steps on `bench_retrieval`'s inputs: losses finite, the current
-       pool slices moved, the other slices and every tower parameter
-       bit-identical, no kernel launched; median step, samples/s, peak
-       memory, one step profiled; then `cluster_task` and one `evaluate`
-       at full width on a small 2-task set;
+       steps eagerly and 1 + 20 captured from the same starting state on
+       `bench_retrieval`'s inputs, under deterministic algorithms: losses
+       finite, captured against eager in bits, the current pool slices
+       moved, the other slices and every tower parameter bit-identical, no
+       kernel launched; per mode the median step, samples/s, peak memory,
+       one step profiled; then `cluster_task` and one `evaluate` at full
+       width on a small 2-task set;
    9b. one fp32 `_losses` and its pool gradient at full width and 2 layers
        a tower, card vs CPU, TF32 off, relative Frobenius 1e-4;
    10. the retrieval quality gate (`bench_quality_retrieval`) under
        deterministic algorithms, held to its bars, printed beside the JAX
-       package's values on a TPU.
+       package's values on a TPU; its sessions run the captured step.
+
+The grounding bench line:
+
+   11. `lpi_tpu_torch.bench.bench_grounding` (the full-width grounding step
+       captured, timed with the seeded offsets and then with
+       `honest_offsets` through the same capture): both keys,
+       `grounding_train_samples_per_sec_per_chip` and
+       `grounding_train_samples_per_sec_zero_offsets`, finite and > 0.
+
+Each phase drops its learners and predictors, and with them their graphs'
+memory pools, before the next.
 
 Every launch counter is set to 0 just before the path it reads and read
 just after. The last lines are the kernels' JSON record (ten kernels), the
@@ -111,6 +135,9 @@ TOWERS = 6
 PREDICT_BATCH, TRAIN_BATCH = 1, 4
 TRAIN_TASK = 1
 REL_TOL = 1e-5  # kernel vs plain: both sum in fp32, in different orders
+# the plain versions take 5-700 ms a call: their time is the median of 5
+# replays (the kernels' of 20)
+PLAIN_REPS = 5
 # the gate's config at 64 px: levels 8, 4, 2, 1, 1; two towers, batch 4
 GATE_S1_SHAPES = {8: 1, 4: 2, 2: 2, 1: 4}
 GATE_S2_SHAPES = {8: 1, 4: 1, 2: 1, 1: 1}
@@ -191,7 +218,7 @@ def check_forward_kernels(dk, gen, records):
                                              f"err {err} > {REL_TOL} x {scale}")
                     rec["max_abs_err"] = max(rec["max_abs_err"], err)
                     ms = device_time_ms(lambda: fn(*args), inner=10)
-                    plain = device_time_ms(lambda: ref_fn(*args))
+                    plain = device_time_ms(lambda: ref_fn(*args), reps=PLAIN_REPS)
                     eager = eager_time_ms(lambda: fn(*args))
                     bms, kind = window_bound_ms(h, oy, 256, offsets=(ox, g, stride, M, KW))
                     log(f"kernel {name} {str(dtype)[6:]} b{batch} in {side}x{side}x{K * 256} "
@@ -246,7 +273,7 @@ def check_backward_kernels(dk, gen, records):
                     if what != "dh" or dtype == torch.float32:
                         rec["max_abs_err"] = max(rec["max_abs_err"], err)
                 ms = device_time_ms(lambda: fn(*args), inner=10)
-                plain = device_time_ms(lambda: ref_fn(*args))
+                plain = device_time_ms(lambda: ref_fn(*args), reps=PLAIN_REPS)
                 bms, kind = window_bound_ms(h, oy, 256, backward=True)
                 log(f"kernel {name} {str(dtype)[6:]} b{TRAIN_BATCH} in {side}x{side}x{K * 256} "
                     f"stride {stride}: {ms:.6f} ms, plain {plain:.6f} ms, bound {bms:.6f} ms "
@@ -354,11 +381,13 @@ def check_fused_kernels(fk, gen, records):
                     bwd["max_abs_err"] = max(bwd["max_abs_err"], *errs)
                     bargs = (f, oy, ox, g, w, ct, M, KW, stride)
                     ms = device_time_ms(lambda: fk.fused_deform(*args))
-                    plain = device_time_ms(lambda: fk.fused_deform_reference(*args))
+                    plain = device_time_ms(lambda: fk.fused_deform_reference(*args),
+                                           reps=PLAIN_REPS)
                     bms = device_time_ms(lambda: fk.fused_deform_backward(*bargs, need_dw=False))
                     bdw = device_time_ms(lambda: fk.fused_deform_backward(*bargs))
                     bplain = device_time_ms(
-                        lambda: fk.fused_deform_backward_reference(*bargs, need_dw=False))
+                        lambda: fk.fused_deform_backward_reference(*bargs, need_dw=False),
+                        reps=PLAIN_REPS)
                     fb, fkind = fused_bound_ms(f, oy, C, C)
                     bb, bkind = fused_bound_ms(f, oy, C, C, backward=True)
                     bbdw, _ = fused_bound_ms(f, oy, C, C, backward=True, dw=True)
@@ -387,7 +416,8 @@ def check_fused_kernels(fk, gen, records):
 def _profile(run, what):
     """`run()` under torch.profiler: wall time, the device's busy time (the
     sum of its kernels' times), the host ranges and the kernels that take
-    the most device time. -> the device kernels' events."""
+    the most device time. -> (the device kernels' events, {"wall", "busy"
+    (ms), "kernels" (count)})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -409,7 +439,68 @@ def _profile(run, what):
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
         log(f"profile kernel {e.self_device_time_total / 1e3:.3f} ms x{e.count}: "
             f"{e.key[:100]}")
-    return kernels
+    return kernels, {"wall": wall, "busy": busy, "kernels": sum(e.count for e in kernels)}
+
+
+def replay_launches(kernels, route) -> dict:
+    """The deform kernels' launches among one profiled call's device kernels,
+    by wrapper, read from the kernels' names (the wrappers' own counters
+    count host calls, which a graph replay makes none of): the window
+    kernels by stride and direction; the fused forward, and the fused
+    backward as its sample launch (one U product beside each is checked
+    by `record_fused_split`)."""
+    if route == "fused":
+        times = fused_kernel_times(kernels)
+        out = {"fused_deform": times.get("fused_fwd_kernel", (0, 0.0))[0],
+               "fused_deform_backward": times.get("fused_bwd_sample_kernel", (0, 0.0))[0]}
+        return {k: n for k, n in out.items() if n}
+    names = {(1, False): "window_accumulate_taps_inpad", (2, False): "window_accumulate_taps_s2",
+             (1, True): "window_accumulate_taps_inpad_backward",
+             (2, True): "window_accumulate_taps_s2_backward"}
+    return {names[key]: n for key, (n, _) in deform_kernel_times(kernels).items()}
+
+
+def check_replay_launches(dk, fk, cfg, kernels, train: bool, what: str) -> dict:
+    """One profiled call's deform launches by kernel name against one
+    forward's (and, when `train`, one backward's) expected launches."""
+    got = replay_launches(kernels, cfg.dyhead.deform_impl)
+    want = {k: n for k, n in expected_counts(dk, fk, cfg, 1, train).items() if n}
+    log(f"{what}: deform kernel launches by name in the profiled call {got}")
+    if got != want:
+        raise AssertionError(f"{what}: launches by kernel name {got}, want {want}")
+    return got
+
+
+def same_bits(runs, what: str) -> None:
+    """Eager against captured: every step's metrics and every pool leaf
+    after the last step equal in bits; if not, within the repo's bar
+    (relative Frobenius 1e-4 on each), with the largest error printed."""
+    eager, captured = runs["eager"], runs["captured"]
+    pairs = [(f"step {i} {k}", np.float64(a[k]), np.float64(b[k]))
+             for i, (a, b) in enumerate(zip(eager["losses"], captured["losses"])) for k in a]
+    pairs += [(name, eager["pools"][name].double().cpu().numpy(),
+               captured["pools"][name].double().cpu().numpy()) for name in eager["pools"]]
+    unequal = [(name, a, b) for name, a, b in pairs if not np.array_equal(a, b)]
+    if not unequal:
+        log(f"{what}: captured equals eager in bits: {len(eager['losses'])} steps' metrics and "
+            f"{len(eager['pools'])} pool leaves")
+        return
+    worst = max((np.linalg.norm(np.ravel(a - b)) / max(np.linalg.norm(np.ravel(a)), 1e-30), name)
+                for name, a, b in unequal)
+    log(f"{what}: captured differs from eager in bits at {len(unequal)} of {len(pairs)} values "
+        f"(the same kernels replayed: a library picked another algorithm under capture); "
+        f"largest relative Frobenius {worst[0]:.3e} at {worst[1]} (bar 1e-4)")
+    if worst[0] > 1e-4:
+        raise AssertionError(f"{what}: captured and eager disagree beyond the bar")
+
+
+def mode_summary(runs, what: str, batch: int) -> None:
+    for mode, r in runs.items():
+        st = r["stats"]
+        log(f"{what} {mode} on {card_line()}: median {r['med']:.3f} ms, "
+            f"{1e3 * batch / r['med']:.3f} samples/s, device busy {st['busy']:.3f} of "
+            f"{st['wall']:.3f} ms ({100 * st['busy'] / st['wall']:.1f}%) in a profiled call, "
+            f"{st['kernels']} device kernels a call, peak memory {r['peak'] / 2**30:.3f} GiB")
 
 
 def deform_kernel_times(kernels):
@@ -451,22 +542,6 @@ def assert_close(ours, theirs, what, rel=1e-4, atol=3e-3, where="card vs cpu"):
         raise AssertionError(f"{what}: card and cpu disagree")
 
 
-def realistic_offsets(model):
-    """The offset convs of the seeded model give offsets near 0; scale their
-    kernels by 30 and give the first 18 biases N(0, 1), as the JAX package's
-    grounding bench does, so that the deform kernels see offsets of a
-    trained model's magnitude (about +-1-2 px)."""
-    rng = np.random.RandomState(7)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if ".offset." in name and name.endswith("weight"):
-                p.mul_(30.0)
-            elif ".offset." in name and name.endswith("bias"):
-                bias = np.zeros(p.shape, np.float32)
-                bias[:18] = rng.randn(18)
-                p.copy_(torch.from_numpy(bias))
-
-
 def launch_counts(dk, fk) -> dict:
     """Every kernel wrapper's launch counter, and the fused backward's calls
     that computed d W."""
@@ -503,53 +578,83 @@ def expected_counts(dk, fk, cfg, n: int, train: bool) -> dict:
 
 def train_phase(dk, fk, cfg, tok, records):
     """Phases 5 and 5b: the full-width train step, batch 4, 448 px, bf16,
-    task 1, on the route `cfg.dyhead.deform_impl` names. -> the batch."""
+    task 1, on the route `cfg.dyhead.deform_impl` names, with the offset
+    convs at a trained model's size (`honest_offsets`): 1 + 10 steps eagerly,
+    then 1 + 10 captured (the first step warms up and captures) from the
+    same starting state, under deterministic algorithms. Per mode: the
+    launch counters, the median step, samples/s, a profiled step's busy
+    share and kernels, the peak memory; the replayed step's deform launches
+    by kernel name; captured against eager in bits; the frozen parameters
+    and the other tasks' rows bit-identical. -> the batch."""
+    from lpi_tpu_torch.bench import deterministic, honest_offsets
     from lpi_tpu_torch.continual.grounding_learner import GroundingLearner
     from lpi_tpu_torch.data.grounding import synthetic_grounding_task
+    from lpi_tpu_torch.graphs import WARMUP
 
     route = cfg.dyhead.deform_impl
     t = time.perf_counter()
     learner = GroundingLearner(cfg, generator=torch.Generator().manual_seed(0), device="cuda")
-    realistic_offsets(learner.model)
+    honest_offsets(learner.model)
     log(f"train {route}: learner built in {time.perf_counter() - t:.3f} s; offset convs "
         f"scaled (kernel x30, bias[:18] ~ N(0, 1)) for realistic offsets")
     ds = synthetic_grounding_task(TRAIN_TASK, TRAIN_BATCH, cfg.image_size, tok,
                                   max_boxes=cfg.max_boxes)
     batch = next(ds.batches(TRAIN_BATCH))
     before = {n: p.detach().clone() for n, p in learner.model.named_parameters()}
-    step = learner.make_step(TRAIN_TASK, steps_per_epoch=10, epochs=cfg.epochs_per_task)
-
-    torch.cuda.reset_peak_memory_stats()
-    totals, times = [], []
     n_steps = 10
-    for i in range(1 + n_steps):
-        if i == 1:
+    runs = {}
+    with deterministic():
+        for mode in ("eager", "captured"):
+            with torch.no_grad():
+                for name, p in learner.pools.items():
+                    p.copy_(before[name])
+            step = learner.make_step(TRAIN_TASK, steps_per_epoch=10, epochs=cfg.epochs_per_task,
+                                     eager=mode == "eager")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             reset_counts(dk, fk)
-        t = time.perf_counter()
-        metrics = step(batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-        totals.append(metrics["total"].item())
-        for k, v in metrics.items():
-            if not np.isfinite(v.item()):
-                raise AssertionError(f"train step {i}: {k} = {v.item()}")
-    launches = launch_counts(dk, fk)
-    peak = torch.cuda.max_memory_allocated()
-    want = expected_counts(dk, fk, cfg, n_steps, train=True)
-    log(f"train {route}: {n_steps} steps, launches {launches}")
-    if launches != want:
-        raise AssertionError(f"want {want} launches, got {launches}")
-    for name, n in launches.items():
+            losses, times = [], []
+            for i in range(1 + n_steps):
+                t = time.perf_counter()
+                metrics = step(batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+                losses.append({k: v.item() for k, v in metrics.items()})
+                for k, v in losses[-1].items():
+                    if not np.isfinite(v):
+                        raise AssertionError(f"train step {i} ({mode}): {k} = {v}")
+            peak = torch.cuda.max_memory_allocated()
+            launches = launch_counts(dk, fk)
+            # the counters count host calls: every step eagerly; the warm-up
+            # and the capture when captured (a replay makes no host call)
+            calls = 1 + n_steps if mode == "eager" else WARMUP + 1
+            want = expected_counts(dk, fk, cfg, calls, train=True)
+            log(f"train {route} ({mode}): {1 + n_steps} steps, launch counters {launches}")
+            if launches != want:
+                raise AssertionError(f"want {want} launches, got {launches}")
+            med = statistics.median(times[1:])
+            log(f"train step {route} ({mode}) on {card_line()}: median {med:.3f} ms over "
+                f"{n_steps} steps after the first ({times[0]:.3f} ms), "
+                f"{1e3 * TRAIN_BATCH / med:.3f} samples/s, all {[round(x, 3) for x in times]}")
+            log(f"train {route} ({mode}): total loss first {losses[0]['total']:.6f}, last "
+                f"{losses[-1]['total']:.6f}; " + ", ".join(f"{k} {v:.6f}"
+                                                          for k, v in losses[-1].items()))
+            pools = {n: p.detach().clone() for n, p in learner.pools.items()}
+            kernels, stats = _profile(lambda: step(batch), f"train step ({route}, {mode})")
+            log_deform_kernels(kernels)
+            per_step = check_replay_launches(dk, fk, cfg, kernels, True,
+                                             f"train {route} ({mode})")
+            if route == "fused":
+                record_fused_split(kernels, records, expected_counts(dk, fk, cfg, 1, train=True))
+            runs[mode] = dict(losses=losses, pools=pools, med=med, peak=peak, stats=stats,
+                              launches=launches, per_step=per_step)
+            del step
+    same_bits(runs, f"train {route}")
+    mode_summary(runs, f"train step {route}", TRAIN_BATCH)
+    for name, n in runs["captured"]["launches"].items():
         if name in records and n:
             records[name]["launches"] = n
-    med = statistics.median(times[1:])
-    log(f"train step {route} on {card_line()}: median {med:.3f} ms over {n_steps} steps "
-        f"after the first ({times[0]:.3f} ms), {1e3 * TRAIN_BATCH / med:.3f} samples/s, all "
-        f"{[round(x, 3) for x in times]}")
-    log(f"train {route}: total loss first {totals[0]:.6f}, last {totals[-1]:.6f}; "
-        f"num_pos {metrics['num_pos'].item():.0f}; "
-        + ", ".join(f"{k} {v.item():.6f}" for k, v in metrics.items()))
-    log(f"train {route}: peak device memory {peak / 2**30:.3f} GiB (max_memory_allocated)")
+            records[name]["replay_launches_per_step"] = runs["captured"]["per_step"][name]
 
     changed = 0
     for name, p in learner.model.named_parameters():
@@ -565,13 +670,7 @@ def train_phase(dk, fk, cfg, tok, records):
         raise AssertionError(f"no pool row of task {TRAIN_TASK} moved")
     log(f"train {route}: frozen parameters and the other tasks' pool rows bit-identical; "
         f"{changed} of {len(learner.pools)} pool leaves moved their task-{TRAIN_TASK} row")
-    del before
-
-    kernels = _profile(lambda: step(batch), f"train step ({route})")
-    log_deform_kernels(kernels)
-    if route == "fused":
-        record_fused_split(kernels, records, expected_counts(dk, fk, cfg, 1, train=True))
-    del learner, step
+    del before, learner, runs
     torch.cuda.empty_cache()
     return batch
 
@@ -647,43 +746,77 @@ def gradient_phase(cfg, batch):
                  f"task-{TRAIN_TASK} pool gradient", atol=np.inf)
 
 
+def detection_rows(result):
+    """A reply's detections as a sorted list of (entity, score, box): the
+    predictor test compares detections as sets."""
+    return sorted((e, float(s), tuple(float(v) for v in b))
+                  for e, s, b in zip(result["entities"], result["scores"], result["boxes"]))
+
+
 def predict_phase(dk, fk, model, keys, tok, cfg, image, caption, n_req=11):
-    """Phases 3 and 3b: `n_req` requests to a bf16 predictor of `model` on
-    the card, launch counters checked, one request profiled. -> predictor."""
+    """Phases 3 and 3b: 1 + `n_req` requests to a bf16 predictor of `model`
+    on the card, eager and captured (the first captured request warms up
+    and captures both graphs): the launch counters, one request profiled
+    with its deform launches by kernel name, the median latency of each
+    mode, equal task ids and equal detections. -> (the captured
+    predictor, deform launches per request)."""
+    from lpi_tpu_torch.graphs import WARMUP
     from lpi_tpu_torch.serve.predictor import GroundingPredictor
 
     route = cfg.dyhead.deform_impl
     # random weights score every box near the 0.01 prior: drop the pre-NMS
     # threshold so that all candidates reach NMS and the reply is not empty
     atss = dataclasses.replace(cfg.atss, inference_thresh=0.0)
-    predictor = GroundingPredictor(model, keys, tok, image_size=cfg.image_size,
-                                   score_thresh=0.0, atss_cfg=atss, device="cuda")
-    predictor.predict(image, caption)  # the first request, outside the counts
-    reset_counts(dk, fk)
-    lat = []
-    for _ in range(n_req):
+    results, medians = {}, {}
+    for mode in ("eager", "captured"):
+        predictor = GroundingPredictor(model, keys, tok, image_size=cfg.image_size,
+                                       score_thresh=0.0, atss_cfg=atss, device="cuda",
+                                       eager=mode == "eager")
+        reset_counts(dk, fk)
         t = time.perf_counter()
-        result = predictor.predict(image, caption)
-        torch.cuda.synchronize()
-        lat.append((time.perf_counter() - t) * 1e3)
-    launches = launch_counts(dk, fk)
-    log(f"predict {route}: {n_req} requests, launches {launches}")
-    want = expected_counts(dk, fk, cfg, n_req, train=False)
-    if launches != want:
-        raise AssertionError(f"want {want} launches, got {launches}")
-    boxes, scores = result["boxes"], result["scores"]
-    if not (boxes.ndim == 2 and boxes.shape[1] == 4 and len(boxes) == len(scores)
-            == len(result["entities"]) and len(boxes) > 0
-            and np.isfinite(boxes).all() and np.isfinite(scores).all()
-            and 0 <= result["task_id"] < cfg.total_tasks):
-        raise AssertionError(f"bad predict output: {result}")
-    log(f"predict {route}: entities {sorted(set(result['entities']))}, {len(boxes)} boxes, "
-        f"top score {float(scores.max()):.4f}, task_id {result['task_id']}")
-    log(f"predict latency {route} on {card_line()}: median {statistics.median(lat):.3f} ms "
-        f"over {n_req} requests after the first, all {[round(x, 3) for x in lat]}")
-    log_deform_kernels(_profile(lambda: predictor.predict(image, caption),
-                                f"request ({route})"))
-    return predictor, launches
+        predictor.predict(image, caption)
+        first = (time.perf_counter() - t) * 1e3
+        lat = []
+        for _ in range(n_req):
+            t = time.perf_counter()
+            result = predictor.predict(image, caption)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t) * 1e3)
+        launches = launch_counts(dk, fk)
+        log(f"predict {route} ({mode}): {1 + n_req} requests, launch counters {launches}")
+        want = expected_counts(dk, fk, cfg, 1 + n_req if mode == "eager" else WARMUP + 1,
+                               train=False)
+        if launches != want:
+            raise AssertionError(f"want {want} launches, got {launches}")
+        boxes, scores = result["boxes"], result["scores"]
+        if not (boxes.ndim == 2 and boxes.shape[1] == 4 and len(boxes) == len(scores)
+                == len(result["entities"]) and len(boxes) > 0
+                and np.isfinite(boxes).all() and np.isfinite(scores).all()
+                and 0 <= result["task_id"] < cfg.total_tasks):
+            raise AssertionError(f"bad predict output ({mode}): {result}")
+        log(f"predict {route} ({mode}): entities {sorted(set(result['entities']))}, "
+            f"{len(boxes)} boxes, top score {float(scores.max()):.4f}, "
+            f"task_id {result['task_id']}")
+        medians[mode] = statistics.median(lat)
+        log(f"predict latency {route} ({mode}) on {card_line()}: median "
+            f"{medians[mode]:.3f} ms over {n_req} requests after the first "
+            f"({first:.3f} ms), all {[round(x, 3) for x in lat]}")
+        kernels, stats = _profile(lambda: predictor.predict(image, caption),
+                                  f"request ({route}, {mode})")
+        log_deform_kernels(kernels)
+        per_request = check_replay_launches(dk, fk, cfg, kernels, False,
+                                            f"predict {route} ({mode})")
+        results[mode] = result
+    if results["captured"]["task_id"] != results["eager"]["task_id"]:
+        raise AssertionError(f"predict {route}: task ids differ, captured "
+                             f"{results['captured']['task_id']}, eager "
+                             f"{results['eager']['task_id']}")
+    if detection_rows(results["captured"]) != detection_rows(results["eager"]):
+        raise AssertionError(f"predict {route}: captured and eager detections differ")
+    log(f"predict {route}: captured and eager give task id {results['eager']['task_id']} and "
+        f"the same {len(results['eager']['boxes'])} detections; median "
+        f"{medians['captured']:.3f} ms captured against {medians['eager']:.3f} ms eager")
+    return predictor, per_request
 
 
 def fp32_heads(model, cfg32, keys, canvas, ids, mask, device):
@@ -839,7 +972,7 @@ def padded_records(dk, results, records):
                lambda: dk.window_accumulate_backward_reference(hp1, o1, o1, ct, M))]
     for name, ms, (bms, kind), plain in cases:
         rec = records[name]
-        rec.update(ms=ms, plain_ms=device_time_ms(plain), bound_ms=bms)
+        rec.update(ms=ms, plain_ms=device_time_ms(plain, reps=PLAIN_REPS), bound_ms=bms)
         rec["bound_kinds"].add(kind)
 
     inp, grid = grid_sample_inputs(hp1, o1, o1, M)
@@ -950,6 +1083,8 @@ def retrieval_train_phase(dk, fk):
     from lpi_tpu_torch.data.retrieval import synthetic_eval, synthetic_session
     from lpi_tpu_torch.data.tokenizer import ClipTokenizer
 
+    from lpi_tpu_torch.bench import deterministic
+
     cfg = RetrievalConfig()
     t = time.perf_counter()
     learner = RetrievalLearner(cfg, generator=torch.Generator().manual_seed(0), device="cuda")
@@ -958,29 +1093,44 @@ def retrieval_train_phase(dk, fk):
         f"{sum(p.numel() for p in learner.pools.values())} pool parameters")
     batch = learner.to_device(retrieval_inputs(cfg))
     before = {n: p.detach().clone() for n, p in learner.model.named_parameters()}
-    step = learner.make_train_step(TRAIN_TASK, steps_per_epoch=100, epochs=cfg.epochs)
-    reset_counts(dk, fk)
-    times, metrics = [], {}
-    for i in range(1 + RETRIEVAL_STEPS):
-        if i == 1:
+    runs = {}
+    with deterministic():
+        for mode in ("eager", "captured"):
+            with torch.no_grad():
+                for name, p in learner.pools.items():
+                    p.copy_(before[name])
+            step = learner.make_train_step(TRAIN_TASK, steps_per_epoch=100, epochs=cfg.epochs,
+                                           eager=mode == "eager")
+            torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        metrics = step(batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-        for k, v in metrics.items():
-            if not np.isfinite(v.item()):
-                raise AssertionError(f"retrieval step {i}: {k} = {v.item()}")
-    peak = torch.cuda.max_memory_allocated()
-    launches = {k: v for k, v in launch_counts(dk, fk).items() if v}
-    if launches:
-        raise AssertionError(f"retrieval step launched deform kernels: {launches}")
-    med = statistics.median(times[1:])
-    log(f"retrieval step on {card_line()}: median {med:.3f} ms over {RETRIEVAL_STEPS} steps "
-        f"after the first ({times[0]:.3f} ms), {1e3 * cfg.batch_size / med:.3f} samples/s, "
-        f"all {[round(x, 3) for x in times]}")
-    log("retrieval step: " + ", ".join(f"{k} {v.item():.6f}" for k, v in metrics.items()))
-    log(f"retrieval step: peak device memory {peak / 2**30:.3f} GiB (max_memory_allocated)")
+            reset_counts(dk, fk)
+            times, losses = [], []
+            for i in range(1 + RETRIEVAL_STEPS):
+                t = time.perf_counter()
+                metrics = step(batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+                losses.append({k: v.item() for k, v in metrics.items()})
+                for k, v in losses[-1].items():
+                    if not np.isfinite(v):
+                        raise AssertionError(f"retrieval step {i} ({mode}): {k} = {v}")
+            peak = torch.cuda.max_memory_allocated()
+            launches = {k: v for k, v in launch_counts(dk, fk).items() if v}
+            if launches:
+                raise AssertionError(f"retrieval step launched deform kernels: {launches}")
+            med = statistics.median(times[1:])
+            log(f"retrieval step ({mode}) on {card_line()}: median {med:.3f} ms over "
+                f"{RETRIEVAL_STEPS} steps after the first ({times[0]:.3f} ms), "
+                f"{1e3 * cfg.batch_size / med:.3f} samples/s, all {[round(x, 3) for x in times]}")
+            log(f"retrieval step ({mode}): " + ", ".join(f"{k} {v:.6f}"
+                                                        for k, v in losses[-1].items()))
+            pools = {n: p.detach().clone() for n, p in learner.pools.items()}
+            kernels, stats = _profile(lambda: step(batch), f"retrieval train step ({mode})")
+            runs[mode] = dict(losses=losses, pools=pools, med=med, peak=peak, stats=stats,
+                              kernels=kernels)
+            del step
+    same_bits(runs, "retrieval step")
+    mode_summary(runs, "retrieval step", cfg.batch_size)
     moved = 0
     for name, p in learner.model.named_parameters():
         old = before[name]
@@ -997,7 +1147,7 @@ def retrieval_train_phase(dk, fk):
     log(f"retrieval step: every tower parameter and the other tasks' slices bit-identical; "
         f"all {moved} pool leaves moved their task-{TRAIN_TASK} slice")
     del before
-    kernels = _profile(lambda: step(batch), "retrieval train step")
+    kernels, med = runs["captured"]["kernels"], runs["captured"]["med"]
     groups = {}
     for e in kernels:
         key = e.key.lower()
@@ -1030,7 +1180,24 @@ def retrieval_train_phase(dk, fk):
     log(f"retrieval evaluate (random weights, 2 tasks, 16 images, 16 captions): "
         f"{time.perf_counter() - t:.3f} s with the two cluster_task calls; txt R@1 "
         f"{summary['txt_r1']:.1f}, img R@1 {summary['img_r1']:.1f}, task-ID {acc}")
-    del learner, step, batch
+    del learner, batch, runs
+    torch.cuda.empty_cache()
+
+
+def grounding_bench_phase():
+    """Phase 11: `lpi_tpu_torch.bench.bench_grounding` on the card (the
+    full-width grounding step captured, seeded then honest offsets): both
+    keys of the bench line, finite and > 0."""
+    from lpi_tpu_torch.bench import bench_grounding
+
+    t = time.perf_counter()
+    out = bench_grounding()
+    line = {"grounding_train_samples_per_sec_per_chip": round(out["honest_offsets"], 2),
+            "grounding_train_samples_per_sec_zero_offsets": round(out["zero_offsets"], 2)}
+    log(f"grounding bench on {card_line()} in {time.perf_counter() - t:.3f} s: "
+        f"{json.dumps(line)}")
+    if not all(np.isfinite(v) and v > 0 for v in out.values()):
+        raise AssertionError(f"grounding bench: {out}")
     torch.cuda.empty_cache()
 
 
@@ -1158,11 +1325,12 @@ def main() -> int:
     caption = "a red car parked next to a tall tree and a small dog"
     predictor, launches = predict_phase(dk, fk, model, keys, tok, cfg, image, caption)
     for name in ("window_accumulate_taps_inpad", "window_accumulate_taps_s2"):
-        records[name]["predict_launches"] = launches[name]
+        records[name]["predict_launches_per_request"] = launches[name]
     model_fused = GroundedVLModel(cfg_fused)
     model_fused.load_state_dict(model.state_dict())
-    _, launches = predict_phase(dk, fk, model_fused, keys, tok, cfg_fused, image, caption)
-    records["fused_deform"]["predict_launches"] = launches["fused_deform"]
+    predictor_fused, launches = predict_phase(dk, fk, model_fused, keys, tok, cfg_fused, image,
+                                              caption)
+    records["fused_deform"]["predict_launches_per_request"] = launches["fused_deform"]
     log(f"phases 3, 3b: {time.perf_counter() - t:.3f} s")
 
     # ---- fp32: the card against the CPU, and fused against "pallas" -----
@@ -1176,7 +1344,7 @@ def main() -> int:
                   "card vs cpu")
     compare_heads(fp32_heads(model, cfg32_fused, keys, canvas, ids, mask, "cuda"),
                   card_pallas, "fused vs pallas, card")
-    del predictor, model, model_fused
+    del predictor, predictor_fused, model, model_fused
     torch.cuda.empty_cache()
     log(f"phases 4, 3b fp32: {time.perf_counter() - t:.3f} s")
 
@@ -1207,6 +1375,11 @@ def main() -> int:
     t = time.perf_counter()
     retrieval_gate_phase(dk, fk)
     log(f"phase 10: {time.perf_counter() - t:.3f} s")
+
+    # ---- the grounding bench line ----------------------------------------
+    t = time.perf_counter()
+    grounding_bench_phase()
+    log(f"phase 11: {time.perf_counter() - t:.3f} s")
 
     for rec in records.values():
         kinds = rec.pop("bound_kinds")

@@ -5,6 +5,13 @@
   the reference's headline `retrieval_train_samples_per_sec_per_chip`:
   `bench.py:bench_retrieval`'s inputs, one warm step, 50 dependent steps,
   one host fetch.
+* `bench_grounding`: samples/s of the full-width continual-grounding train
+  step (GLIP-T + LPI at 448 px, batch 4, bf16), `bench.py:bench_grounding`:
+  one warm step, 10 dependent steps, one host fetch, first with the seeded
+  offset convs (offsets near 0), then with `honest_offsets` (offsets of a
+  trained model's size) through the same captured step; the reference's
+  `grounding_train_samples_per_sec_per_chip` (honest) and
+  `grounding_train_samples_per_sec_zero_offsets`.
 * `bench_quality_retrieval`: the retrieval quality gate, `bench.py`'s
   `bench_quality` leg: a tiny CLIP (32 px, patch 8, width 64, 3 layers a
   tower, fp32) pretrained with all parameters for 600 steps on the mixed
@@ -27,6 +34,9 @@ backward passes the grounding task-ID accuracy of one recipe moved between
 luck, not the port (`scripts/torch_gate_spread.py`).
 
     python -m lpi_tpu_torch.bench       # on the card: one JSON line
+
+On the card the train steps run captured (`lpi_tpu_torch.graphs`), as the
+JAX package's run jitted.
 
     from lpi_tpu_torch.bench import bench_quality_grounding
     bench_quality_grounding()                 # on the card, deform_impl "pallas"
@@ -183,6 +193,61 @@ def bench_retrieval(device="cuda", cfg: Optional[RetrievalConfig] = None,
     return cfg.batch_size * iters / (time.perf_counter() - t0)
 
 
+def honest_offsets(model) -> None:
+    """Give the head's offset convs offsets of a trained model's size (about
+    +-1-2 px), as `bench.py:365-384` means to: every offset conv's kernel
+    x30, its bias zero but for `bias[:18]` ~ N(0, 1), drawn from one
+    `RandomState(7)` conv after conv in the JAX package's order (a jitted
+    init sorts its keys: tower0, tower1, tower10, tower2, ...). In place,
+    so a step or request captured before reads the new values. (`bench.py`
+    applies its loop to the flat split of the parameters, whose keys are
+    whole paths, so there it matches no key and both of its timings run
+    the seeded offsets.)"""
+    rng = np.random.RandomState(7)
+    towers = model.head.towers
+    with torch.no_grad():
+        for i in sorted(range(len(towers)), key=lambda i: f"tower{i}"):
+            conv = towers[i].offset
+            conv.weight.mul_(30.0)
+            bias = np.zeros(conv.bias.shape, np.float32)
+            bias[:18] = rng.randn(18) * 1.0
+            conv.bias.copy_(torch.from_numpy(bias))
+
+
+def bench_grounding(device="cuda", cfg: Optional[GroundingConfig] = None,
+                    iters: int = 10) -> dict:
+    """Samples/s of the masked grounding step at task 0 on `cfg` (default
+    `GroundingConfig(image_size=448, batch_size=4)`: full GLIP-T + LPI,
+    bf16) and `synthetic_grounding_task(0, batch, ...)`'s batch: one warm
+    step, `iters` dependent steps, one host fetch; first with the seeded
+    offset convs, then after `honest_offsets` through the same step (on
+    the card, the same capture). -> {"honest_offsets": sps,
+    "zero_offsets": sps}."""
+    from lpi_tpu_torch.continual.grounding_learner import GroundingLearner
+    from lpi_tpu_torch.data.bert_tokenizer import BertTokenizer
+    from lpi_tpu_torch.data.grounding import synthetic_grounding_task
+
+    cfg = GroundingConfig(image_size=448, batch_size=4) if cfg is None else cfg
+    tok = BertTokenizer(max_len=cfg.bert.max_query_len, vocab_size=cfg.bert.vocab_size)
+    ds = synthetic_grounding_task(0, cfg.batch_size, cfg.image_size, tok,
+                                  max_boxes=cfg.max_boxes)
+    learner = GroundingLearner(cfg, device=device)
+    step = learner.make_step(0, steps_per_epoch=10, epochs=cfg.epochs_per_task)
+    b = learner.to_device(next(ds.batches(cfg.batch_size)))
+
+    def timed():
+        float(step(b)["total"])
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            metrics = step(b)
+        float(metrics["total"])  # waits for the whole dependent chain
+        return cfg.batch_size * iters / (time.perf_counter() - t0)
+
+    zero = timed()
+    honest_offsets(learner.model)
+    return {"honest_offsets": timed(), "zero_offsets": zero}
+
+
 def gate_retrieval_config() -> RetrievalConfig:
     """The retrieval gate's tiny config (`bench.py:180-189`): CLIP at 32 px,
     patch 8, width 64, 3 layers a tower, embed 32, 4 context tokens; LPI
@@ -256,12 +321,15 @@ def retrieval_quality_ok(result: dict) -> bool:
 
 def main() -> int:
     """One JSON line with the reference's keys: the retrieval step's
-    samples/s, and `quality` (both gates, their bars, `quality_ok`), beside
-    the card's name. Exits 1 without a card."""
+    samples/s, the grounding step's (honest and zero offsets), and
+    `quality` (both gates, their bars, `quality_ok`), beside the card's
+    name. Exits 1 without a card."""
     if not torch.cuda.is_available():
         print("lpi_tpu_torch.bench: no CUDA device", file=sys.stderr)
         return 1
     sps = bench_retrieval()
+    grounding_sps = bench_grounding()
+    torch.cuda.empty_cache()
     quality = bench_quality_retrieval()
     grounding = bench_quality_grounding()
     quality["quality_bars"] = {**RETRIEVAL_BARS, "grounding_p1": QUALITY_BARS["grounding_p1"],
@@ -271,6 +339,10 @@ def main() -> int:
     quality.update(grounding)
     print(json.dumps({"metric": "retrieval_train_samples_per_sec_per_chip",
                       "value": round(sps, 2), "unit": "samples/s",
+                      "grounding_train_samples_per_sec_per_chip":
+                          round(grounding_sps["honest_offsets"], 2),
+                      "grounding_train_samples_per_sec_zero_offsets":
+                          round(grounding_sps["zero_offsets"], 2),
                       "device": torch.cuda.get_device_name(0), "quality": quality,
                       "quality_ok": quality["quality_ok"]}), flush=True)
     return 0 if quality["quality_ok"] else 1

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,15 +35,53 @@ def freeze(model: nn.Module, pool_keys: Sequence[str]
 
 @dataclass
 class AdamState:
-    """optax `scale_by_adam` state: first and second moments, step count."""
+    """optax `scale_by_adam` state: first and second moments, the step count
+    and its two bias corrections. The count stays on the host, which alone
+    reads it; the corrections are 0-d tensors on the moments' device that
+    `advance` writes before each step, so a captured step reads the current
+    values. They are worked out on the host in float32 (`np.float32(1) - b
+    ** count`), as PyTorch does for a Python scalar; on the card PyTorch
+    divides by a host scalar as a product with its float32 reciprocal, so
+    there `c1`, `c2` hold the reciprocals and the step multiplies. Either
+    way the bits are those of dividing by the host value."""
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
     count: int = 0
+    c1: Optional[torch.Tensor] = None  # 0-d fp32: 1 - b1^count, or its reciprocal
+    c2: Optional[torch.Tensor] = None  # 0-d fp32: 1 - b2^count, or its reciprocal
 
     @staticmethod
     def zeros(params: List[torch.Tensor]) -> "AdamState":
+        dev = params[0].device
         return AdamState([torch.zeros_like(p) for p in params],
-                         [torch.zeros_like(p) for p in params])
+                         [torch.zeros_like(p) for p in params], 0,
+                         torch.ones((), dtype=torch.float32, device=dev),
+                         torch.ones((), dtype=torch.float32, device=dev))
+
+    @property
+    def reciprocal(self) -> bool:
+        return self.c1.device.type == "cuda"
+
+    @torch.no_grad()
+    def reset(self) -> None:
+        """A fresh optimizer, in place: zero moments, count 0."""
+        for t in (*self.mu, *self.nu):
+            t.zero_()
+        self.count = 0
+
+    @torch.no_grad()
+    def advance(self) -> None:
+        """Count one more step and write its corrections."""
+        self.count += 1
+        n = np.float32(self.count)
+        bc = [np.float32(1) - np.float32(b) ** n for b in (ADAM_B1, ADAM_B2)]
+        if self.reciprocal:
+            bc = [np.float32(1) / v for v in bc]
+        self.c1.fill_(float(bc[0]))
+        self.c2.fill_(float(bc[1]))
+
+    def corrected(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        return x * c if self.reciprocal else x / c
 
 
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
@@ -55,23 +93,32 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torc
 
 
 @torch.no_grad()
-def adamw_update(params: List[torch.Tensor], grads: List[torch.Tensor], state: AdamState,
-                 lr: float, weight_decay: float,
-                 masks: Optional[List[torch.Tensor]] = None) -> None:
-    """One optax `adamw` step applied in place: u = -lr (m_hat / (sqrt(v_hat)
-    + eps) + wd p), times `masks` where given."""
-    state.count += 1
-    bc1 = float(np.float32(1) - np.float32(ADAM_B1) ** np.float32(state.count))
-    bc2 = float(np.float32(1) - np.float32(ADAM_B2) ** np.float32(state.count))
+def adamw_apply(params: List[torch.Tensor], grads: List[torch.Tensor], state: AdamState,
+                lr: Union[float, torch.Tensor], weight_decay: float,
+                masks: Optional[List[torch.Tensor]] = None) -> None:
+    """One optax `adamw` step at the state's current count, applied in
+    place to `params` and the moments: u = -lr (m_hat / (sqrt(v_hat) + eps)
+    + wd p), times `masks` where given. `lr` is a float or a 0-d tensor on
+    the parameters' device. Nothing here reads a value back to the host."""
     for i, (p, g) in enumerate(zip(params, grads)):
         mu = (1 - ADAM_B1) * g + ADAM_B1 * state.mu[i]
         nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * state.nu[i]
-        state.mu[i], state.nu[i] = mu, nu
-        u = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
+        state.mu[i].copy_(mu)
+        state.nu[i].copy_(nu)
+        u = state.corrected(mu, state.c1) / (torch.sqrt(state.corrected(nu, state.c2))
+                                             + ADAM_EPS)
         u = -lr * (u + weight_decay * p)
         if masks is not None:
             u = u * masks[i]
         p.add_(u)
+
+
+def adamw_update(params: List[torch.Tensor], grads: List[torch.Tensor], state: AdamState,
+                 lr: Union[float, torch.Tensor], weight_decay: float,
+                 masks: Optional[List[torch.Tensor]] = None) -> None:
+    """`state.advance()`, then `adamw_apply`: one eager step."""
+    state.advance()
+    adamw_apply(params, grads, state, lr, weight_decay, masks)
 
 
 def epoch_lrs(base_lr: float, epochs: int) -> List[float]:
@@ -79,3 +126,9 @@ def epoch_lrs(base_lr: float, epochs: int) -> List[float]:
     for e = 0..E."""
     return [float(np.float32(base_lr * 0.5 * (1.0 + math.cos(math.pi * e / epochs))))
             for e in range(epochs + 1)]
+
+
+def staged_lrs(base_lr: float, epochs: int, device) -> torch.Tensor:
+    """`epoch_lrs` as one fp32 tensor on `device`, staged once per session:
+    a step copies its epoch's entry into the lr it reads."""
+    return torch.tensor(epoch_lrs(base_lr, epochs), dtype=torch.float32, device=device)

@@ -24,17 +24,19 @@ from __future__ import annotations
 
 import itertools
 import time
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from lpi_tpu_torch.config import GroundingConfig
-from lpi_tpu_torch.continual.common import (AdamState, adamw_update, clip_by_global_norm,
-                                             epoch_lrs, freeze)
+from lpi_tpu_torch.continual.common import (AdamState, adamw_apply,  # noqa: F401
+                                             adamw_update, clip_by_global_norm, freeze,
+                                             staged_lrs)
 from lpi_tpu_torch.continual.keys import TaskKeys, exact_fp32, infer_task_ids
 from lpi_tpu_torch.data.grounding import GroundingTaskSet
 from lpi_tpu_torch.eval.refexp import RefExpEvaluator
+from lpi_tpu_torch.graphs import Graphed, captures
 from lpi_tpu_torch.models.glip.atss import atss_losses
 from lpi_tpu_torch.models.glip.grounding import (GroundedVLModel, grounding_aux_losses,
                                                  init_parameters)
@@ -46,6 +48,12 @@ POOL_KEYS = ("prompts", "interact")
 _BATCH_DTYPES = {"images": torch.float32, "input_ids": torch.long,
                  "attention_mask": torch.float32, "gt_boxes": torch.float32,
                  "gt_valid": torch.bool, "positive_map": torch.float32}
+
+
+class _Session(NamedTuple):
+    task_id: torch.Tensor  # 0-d int64
+    lr: torch.Tensor  # 0-d fp32
+    state: AdamState
 
 
 class GroundingLearner:
@@ -74,9 +82,14 @@ class GroundingLearner:
         self.task_relation = torch.tensor((sim > cfg.lpi.task_sim_threshold).astype(np.float32),
                                           device=self.device)
         self.keys: Optional[TaskKeys] = None  # created at the first cluster_task
+        self._session: Optional[_Session] = None
+        self._graphs: Dict[tuple, Graphed] = {}  # captured steps by batch shapes
 
-    def to_device(self, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device, _BATCH_DTYPES[k])
+    def to_device(self, batch: Mapping) -> Dict[str, torch.Tensor]:
+        """The batch's model inputs on the learner's device, from numpy
+        arrays or tensors."""
+        return {k: (v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v)))
+                .to(self.device, _BATCH_DTYPES[k])
                 for k, v in batch.items() if k in _BATCH_DTYPES}
 
     # ------------------------------------------------------------------
@@ -103,49 +116,82 @@ class GroundingLearner:
         total = sum(losses.values())
         return total, {**losses, "num_pos": det["num_pos"]}
 
-    def _step(self, batch, task_id: int, lr: float, state: AdamState,
-              params: Optional[Dict[str, torch.nn.Parameter]] = None,
+    def _step(self, batch: Mapping[str, torch.Tensor], task_id, lr, state: AdamState,
+              params: List[torch.nn.Parameter],
               masked: bool = True) -> Dict[str, torch.Tensor]:
-        """One train step on `params` (default: the pools): gradients, the
-        one-hot over the leading task axis (when `masked`), the global-norm
-        clip, AdamW, the one-hot again on the updates."""
+        """One train step on `params` at the state's current count (the
+        caller advances it): gradients, the one-hot of `task_id` over the
+        leading task axis (when `masked`), the global-norm clip, AdamW, the
+        one-hot again on the updates. `batch` is on the device; `task_id` is
+        an int or a 0-d device tensor, `lr` a float or a 0-d device tensor:
+        nothing here reads a value back to the host, so it can be captured."""
         cfg = self.cfg
-        params = list((self.pools if params is None else params).values())
-        batch = self.to_device(batch)
         total, metrics = self._losses(batch, task_id)
         grads = torch.autograd.grad(total, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         masks = None
         if masked:
-            masks = []
-            for p in params:
-                oh = torch.zeros(p.shape[0], dtype=p.dtype, device=p.device)
-                oh[task_id] = 1.0
-                masks.append(oh.reshape((-1,) + (1,) * (p.dim() - 1)))
+            masks = [(torch.arange(p.shape[0], device=p.device) == task_id).to(p.dtype)
+                     .reshape((-1,) + (1,) * (p.dim() - 1)) for p in params]
             grads = [g * mk for g, mk in zip(grads, masks)]
         grads = clip_by_global_norm(grads, cfg.grad_clip)
-        adamw_update(params, grads, state, lr, cfg.weight_decay, masks)
+        adamw_apply(params, grads, state, lr, cfg.weight_decay, masks)
         return {"total": total.detach(), **{k: v.detach() for k, v in metrics.items()}}
 
-    def make_step(self, task_id: int, steps_per_epoch: int,
-                  epochs: int) -> Callable[[Mapping], Dict[str, torch.Tensor]]:
-        """A session's masked step with a fresh optimizer state and the
-        per-epoch cosine learning rate: `step(batch)` -> metrics (device
-        tensors)."""
-        state = AdamState.zeros(list(self.pools.values()))
-        lrs = epoch_lrs(self.cfg.lr, epochs)
+    def _session_state(self) -> _Session:
+        """The session inputs that every session's step reads: the task id
+        and lr as 0-d device tensors and the AdamW state, created once and
+        reset in place by each `make_step`."""
+        if self._session is None:
+            self._session = _Session(torch.zeros((), dtype=torch.int64, device=self.device),
+                                     torch.zeros((), dtype=torch.float32, device=self.device),
+                                     AdamState.zeros(list(self.pools.values())))
+        return self._session
+
+    def make_step(self, task_id: int, steps_per_epoch: int, epochs: int,
+                  eager: bool = False) -> Callable[[Mapping], Dict[str, torch.Tensor]]:
+        """A session's masked step with a fresh optimizer and the per-epoch
+        cosine learning rate lrs[min(step // steps_per_epoch, epochs)]:
+        `step(batch)` -> metrics (device tensors). The session's task id,
+        learning rates and AdamW state are written in place into the
+        learner's one set of session inputs, so a new `make_step` ends the
+        previous session. On the card the step is captured as one CUDA graph
+        at its first batch of a new shape and replayed, the capture shared
+        by every session as the JAX package compiles its step once per run;
+        its metrics are static tensors that the next step overwrites.
+        `eager=True` (or a CPU learner) runs it op by op."""
+        sess = self._session_state()
+        sess.state.reset()
+        sess.task_id.fill_(task_id)
+        lrs = staged_lrs(self.cfg.lr, epochs, self.device)
+        params = list(self.pools.values())
         count = itertools.count()
+        capture = captures(self.device) and not eager
+
+        def run(b):
+            return self._step(b, sess.task_id, sess.lr, sess.state, params)
 
         def step(batch):
             epoch = next(count) // max(steps_per_epoch, 1)
-            return self._step(batch, task_id, lrs[min(epoch, epochs)], state)
+            sess.lr.copy_(lrs[min(epoch, epochs)])
+            sess.state.advance()
+            if not capture:
+                return run(self.to_device(batch))
+            key = tuple((k, tuple(np.shape(batch[k]))) for k in sorted(_BATCH_DTYPES)
+                        if k in batch)
+            if key not in self._graphs:
+                self._graphs[key] = Graphed(
+                    run, self.to_device(batch),
+                    state=[*params, *sess.state.mu, *sess.state.nu])
+            return self._graphs[key](batch)
 
         return step
 
     def pretrain(self, dataset: GroundingTaskSet, steps: int,
                  lr: Optional[float] = None) -> Dict[str, float]:
         """Full-parameter training with no task masks at task 0 (the
-        reference's FULL tuning preset), then the frozen split again."""
+        reference's FULL tuning preset), then the frozen split again. Runs
+        eagerly on every device."""
         cfg = self.cfg
         lr = cfg.lr if lr is None else lr
         params = dict(self.model.named_parameters())
@@ -160,7 +206,9 @@ class GroundingLearner:
                 if batch is None:
                     it = dataset.batches(cfg.batch_size, seed=cfg.seed + n)
                     batch = next(it)
-                metrics = self._step(batch, 0, lr, state, params=params, masked=False)
+                state.advance()
+                metrics = self._step(self.to_device(batch), 0, lr, state,
+                                     list(params.values()), masked=False)
         finally:
             self.pools, self.frozen = freeze(self.model, POOL_KEYS)
         return {k: float(v) for k, v in metrics.items()}

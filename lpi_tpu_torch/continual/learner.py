@@ -34,24 +34,31 @@ from __future__ import annotations
 
 import itertools
 import time
-from typing import Callable, Dict, List, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from lpi_tpu_torch.config import RetrievalConfig
 from lpi_tpu_torch.continual.common import AdamState, adamw_update, clip_by_global_norm, \
-    epoch_lrs, freeze
+    freeze, staged_lrs
 from lpi_tpu_torch.continual.keys import TaskKeys, exact_fp32, infer_task_ids
 from lpi_tpu_torch.continual.mid import task_relation
 from lpi_tpu_torch.data.retrieval import RetrievalEvalSet, RetrievalTrainSet
 from lpi_tpu_torch.eval.retrieval import device_ranks, itm_eval
+from lpi_tpu_torch.graphs import Graphed, captures
 from lpi_tpu_torch.losses.clip_loss import alignment_loss, clip_loss, task_prompt_loss_masked
 from lpi_tpu_torch.models.clip.slinet import SliNet, init_parameters
 from lpi_tpu_torch.ops.kmeans import kmeans
 
 POOL_KEYS = ("prompts", "ctx_pool")
 PRETRAIN_CLIP = 1.0  # the global-norm clip of `pretrain`
+
+
+class _Session(NamedTuple):
+    task_id: torch.Tensor  # 0-d int64
+    lr: torch.Tensor  # 0-d fp32
+    trace: List[torch.Tensor]  # the momentum, one per pool leaf
 
 
 class RetrievalLearner:
@@ -82,6 +89,8 @@ class RetrievalLearner:
         self.visual_keys = TaskKeys.create(T, k, dim, device=self.device)
         self.textual_keys = TaskKeys.create(T, k, dim, device=self.device)
         self.session_results: Dict[int, dict] = {}
+        self._session: Optional[_Session] = None
+        self._graphs: Dict[tuple, Graphed] = {}  # captured steps by batch shapes
 
     def to_device(self, batch: Mapping) -> Dict[str, torch.Tensor]:
         """{'images': [B, H, W, 3] float32, 'token_ids': [B, 77] long} on
@@ -114,37 +123,64 @@ class RetrievalLearner:
                 .reshape((-1,) + (1,) * (p.dim() - 1)) for p in self.pools.values()]
 
     def _sgd_step(self, batch: Mapping[str, torch.Tensor], task_id: torch.Tensor,
-                  lr: torch.Tensor, masks: List[torch.Tensor],
-                  trace: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
+                  lr: torch.Tensor, trace: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One masked step in place on the pools and `trace` (the momentum).
-        -> metrics, device tensors."""
+        -> metrics, device tensors. Nothing reads a value back to the host,
+        so it can be captured."""
         cfg = self.cfg
         params = list(self.pools.values())
         total, losses = self._losses(batch, task_id)
         grads = torch.autograd.grad(total, params, allow_unused=True)
         with torch.no_grad():
-            for i, (p, g, mask) in enumerate(zip(params, grads, masks)):
+            for p, g, mask, tr in zip(params, grads, self._masks(task_id), trace):
                 g = torch.zeros_like(p) if g is None else g * mask
-                trace[i] = (g + cfg.weight_decay * p) + cfg.momentum * trace[i]
-                p.add_((-lr * trace[i]) * mask)
+                tr.copy_((g + cfg.weight_decay * p) + cfg.momentum * tr)
+                p.add_((-lr * tr) * mask)
         return {"total": total.detach(), **{k: v.detach() for k, v in losses.items()}}
 
-    def make_train_step(self, task_id: int, steps_per_epoch: int,
-                        epochs: int) -> Callable[[Mapping], Dict[str, torch.Tensor]]:
+    def _session_state(self) -> _Session:
+        """The session inputs that every session's step reads (task id, lr,
+        momentum), created once and reset in place by each
+        `make_train_step`."""
+        if self._session is None:
+            self._session = _Session(torch.zeros((), dtype=torch.int64, device=self.device),
+                                     torch.zeros((), dtype=torch.float32, device=self.device),
+                                     [torch.zeros_like(p) for p in self.pools.values()])
+        return self._session
+
+    def make_train_step(self, task_id: int, steps_per_epoch: int, epochs: int,
+                        eager: bool = False) -> Callable[[Mapping], Dict[str, torch.Tensor]]:
         """A session's masked step with a fresh momentum and the per-epoch
         cosine learning rate lrs[min(step // steps_per_epoch, epochs)], the
-        task id and the rates staged on the device once: `step(batch)` ->
-        metrics (device tensors)."""
-        tid = torch.tensor(task_id, device=self.device)
-        lrs = [torch.tensor(lr, device=self.device) for lr in epoch_lrs(self.cfg.lr, epochs)]
-        masks = self._masks(tid)
-        trace = [torch.zeros_like(p) for p in self.pools.values()]
+        rates staged on the device once: `step(batch)` -> metrics (device
+        tensors). The task id, lr and momentum are written in place into the
+        learner's one set of session inputs, so a new `make_train_step` ends
+        the previous session. On the card the step is captured as one CUDA
+        graph at its first batch of a new shape and replayed by every
+        session; its metrics are static tensors that the next step
+        overwrites. `eager=True` (or a CPU learner) runs it op by op."""
+        sess = self._session_state()
+        with torch.no_grad():
+            for t in sess.trace:
+                t.zero_()
+        sess.task_id.fill_(task_id)
+        lrs = staged_lrs(self.cfg.lr, epochs, self.device)
         count = itertools.count()
+        capture = captures(self.device) and not eager
+
+        def run(b):
+            return self._sgd_step(b, sess.task_id, sess.lr, sess.trace)
 
         def step(batch):
             epoch = next(count) // max(steps_per_epoch, 1)
-            return self._sgd_step(self.to_device(batch), tid, lrs[min(epoch, epochs)], masks,
-                                  trace)
+            sess.lr.copy_(lrs[min(epoch, epochs)])
+            if not capture:
+                return run(self.to_device(batch))
+            key = tuple(tuple(np.shape(batch[k])) for k in ("images", "token_ids"))
+            if key not in self._graphs:
+                self._graphs[key] = Graphed(run, self.to_device(batch),
+                                            state=[*self.pools.values(), *sess.trace])
+            return self._graphs[key](batch)
 
         return step
 

@@ -100,8 +100,9 @@ def atss_losses(anchors: torch.Tensor, level_counts: Sequence[int],
     pos = torch.stack([p for _, p in matches])  # [B, A]
 
     tok = positive_map.gather(1, matched[..., None].expand(-1, -1, T))
-    noobj = torch.zeros(T, dtype=positive_map.dtype, device=positive_map.device)
-    noobj[-1] = 1.0
+    # [NoObj]: the last token set, built on the device (no host copy, so a
+    # captured step can run it)
+    noobj = (torch.arange(T, device=positive_map.device) == T - 1).to(positive_map.dtype)
     token_labels = torch.where(pos[..., None], tok, noobj)
 
     num_pos_raw = pos.sum().float()

@@ -64,14 +64,23 @@ class InteractModulePool(nn.Module):
 
     def layer_maps(self, task_id):
         """-> (m_v2t [L, Dv+1, Dt], m_t2v [L, Dt+1, Dv],
-        (vis_scale, vis_bias, txt_scale, txt_bias)) for one task."""
-        t = task_id
-        m_v2t = torch.einsum("lr,dr,er->lde", self.d1_v2t[t], self.d2_v2t[t],
-                             self.d3_v2t[t]) / self.rank
-        m_t2v = torch.einsum("lr,dr,er->lde", self.d1_t2v[t], self.d2_t2v[t],
-                             self.d3_t2v[t]) / self.rank
-        ln = (self.visual_norm_scale[t], self.visual_norm_bias[t],
-              self.textual_norm_scale[t], self.textual_norm_bias[t])
+        (vis_scale, vis_bias, txt_scale, txt_bias)) for one task. `task_id`
+        is an int or a 0-d integer tensor on the pool's device (a gather,
+        so no read-back to the host)."""
+        if isinstance(task_id, torch.Tensor):
+            idx = task_id.reshape(1)
+
+            def take(p):
+                return p.index_select(0, idx)[0]
+        else:
+            def take(p):
+                return p[task_id]
+        m_v2t = torch.einsum("lr,dr,er->lde", take(self.d1_v2t), take(self.d2_v2t),
+                             take(self.d3_v2t)) / self.rank
+        m_t2v = torch.einsum("lr,dr,er->lde", take(self.d1_t2v), take(self.d2_t2v),
+                             take(self.d3_t2v)) / self.rank
+        ln = (take(self.visual_norm_scale), take(self.visual_norm_bias),
+              take(self.textual_norm_scale), take(self.textual_norm_bias))
         return m_v2t, m_t2v, ln
 
 

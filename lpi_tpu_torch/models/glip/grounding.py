@@ -52,23 +52,34 @@ class GroundedVLModel(nn.Module):
         self.prompts = DecomposedPromptPool(
             c.total_tasks, c.lpi.prompt_depth, c.lpi.prompt_length,
             c.swin.embed_dim, c.bert.hidden_size, c.lpi.prompt_rank)
+        self._anchor_cache = {}
 
     def _head_flat(self, feats, embedded, masks, B):
-        c = self.cfg
         if self.tunable_linear is not None:
             embedded = self.tunable_linear(embedded)
         out = self.head(feats, embedded, masks)
-        shapes = tuple((f.shape[1], f.shape[2]) for f in feats)
-        anchors, counts = concat_anchors(shapes, strides=c.atss.anchor_strides,
-                                         sizes=c.atss.anchor_sizes,
-                                         aspect_ratios=c.atss.aspect_ratios)
+        anchors, counts = self._anchors(tuple((f.shape[1], f.shape[2]) for f in feats),
+                                        embedded.device)
         return {
             "bbox_pred": torch.cat([p.reshape(B, -1, 4) for p in out["bbox_pred"]], 1),
             "centerness": torch.cat([p.reshape(B, -1) for p in out["centerness"]], 1),
             "dot_logits": torch.cat(out["dot_logits"], 1),
-            "anchors": torch.from_numpy(anchors).to(embedded.device),
+            "anchors": anchors,
             "level_counts": counts,
         }
+
+    def _anchors(self, shapes, device):
+        """The anchors [A, 4] of these level shapes on `device` and the
+        per-level counts, made once: a captured step or request must not
+        copy from the host."""
+        key = (shapes, device)
+        if key not in self._anchor_cache:
+            c = self.cfg
+            anchors, counts = concat_anchors(shapes, strides=c.atss.anchor_strides,
+                                             sizes=c.atss.anchor_sizes,
+                                             aspect_ratios=c.atss.aspect_ratios)
+            self._anchor_cache[key] = (torch.from_numpy(anchors).to(device), counts)
+        return self._anchor_cache[key]
 
     def forward(self, images, input_ids, attention_mask, task_id: int = 0):
         """Train forward with task `task_id`'s prompts. images [B, H, W, 3]
@@ -88,8 +99,9 @@ class GroundedVLModel(nn.Module):
         [B, H, W, 3] NHWC; -> (flat head outputs, language dict)."""
         vis_all, txt_all = self.prompts.all_prompts()
         language, outs = self.encoder(
-            images, input_ids, attention_mask, vis_all[task_ids], txt_all[task_ids],
-            task_ids[0], num_pooled_layers=self.cfg.bert.num_pooled_layers)
+            images, input_ids, attention_mask, vis_all.index_select(0, task_ids),
+            txt_all.index_select(0, task_ids), task_ids[0],
+            num_pooled_layers=self.cfg.bert.num_pooled_layers)
         feats = self.fpn(outs)
         flat = self._head_flat(feats, language["embedded"], attention_mask,
                                images.shape[0])

@@ -24,16 +24,37 @@ def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return inter / torch.clamp(union, min=1e-9)
 
 
+class _Prod2(torch.autograd.Function):
+    """`torch.prod(x, -1)` over a last axis of 2 with PyTorch's own gradient,
+    but decided on the device: PyTorch's `prod_backward` reads back whether
+    any entry of x is 0 (a host sync, which a captured step cannot make),
+    then gives grad * (prod / x) if none is, else grad times the other
+    entry. Both are computed here and one is picked by `torch.where`, so
+    the bits are the eager ones."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.prod(x, -1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        g = grad.unsqueeze(-1)
+        return torch.where((x == 0).any(), g * x.flip(-1), g * (out.unsqueeze(-1) / x))
+
+
 def elementwise_giou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Per-row GIoU: a [..., 4], b [..., 4] -> [...]."""
     lt = torch.maximum(a[..., :2], b[..., :2])
     rb = torch.minimum(a[..., 2:], b[..., 2:])
-    inter = torch.prod(clip(rb - lt, 0.0), -1)
+    inter = _Prod2.apply(clip(rb - lt, 0.0))
     union = box_area(a) + box_area(b) - inter
     iou = inter / clip(union, 1e-9)
     hl = torch.minimum(a[..., :2], b[..., :2])
     hr = torch.maximum(a[..., 2:], b[..., 2:])
-    hull = torch.prod(clip(hr - hl, 0.0), -1)
+    hull = _Prod2.apply(clip(hr - hl, 0.0))
     return iou - (hull - union) / clip(hull, 1e-9)
 
 

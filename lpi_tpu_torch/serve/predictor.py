@@ -12,12 +12,19 @@
 `predict` marks its phases (prepare, task_id, forward, postprocess) as
 profiler ranges, which `chip_smoke.py` reads; without a profiler each
 costs microseconds against a request of about 100 ms.
+
+On the card the task-id pass (`extract_features` + `infer_task_ids`) and
+the prompted forward (`forward_tasks`) are each captured once as a CUDA
+graph at (image_size, the tokenizer's padded length) and replayed, as the
+JAX package jits `_extract` and `_fwd` apart; both are captured with TF32
+off, which fixes cuBLAS's math mode in the graphs. Image preparation, NER,
+tokenizing and the postprocess with its host NMS stay outside them.
 """
 
 from __future__ import annotations
 
 import re
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +33,7 @@ from torch.profiler import record_function
 from lpi_tpu_torch.continual.keys import TaskKeys, exact_fp32, infer_task_ids
 from lpi_tpu_torch.data.bert_tokenizer import BertTokenizer, positive_map_from_spans
 from lpi_tpu_torch.data.transforms import normalize_bgr255, resize_distort
+from lpi_tpu_torch.graphs import Graphed, captures
 from lpi_tpu_torch.models.glip.postprocess import atss_postprocess
 
 _STOP_SPLITTERS = {
@@ -88,12 +96,15 @@ class GroundingPredictor:
 
     The model and keys are moved to `device` (the card unless the caller
     asks for the CPU). The forward runs with TF32 off, so an fp32 model
-    computes in full fp32 as the JAX reference does.
+    computes in full fp32 as the JAX reference does. On the card both
+    passes are captured and replayed (`eager=True` runs them op by op); the
+    graphs read `keys` as it was at their capture, so assigning new keys
+    captures anew.
     """
 
     def __init__(self, model, keys: Optional[TaskKeys] = None, tokenizer=None,
                  image_size: int = 800, score_thresh: float = 0.5,
-                 atss_cfg=None, device="cuda"):
+                 atss_cfg=None, device="cuda", eager: bool = False):
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.keys = keys.to(self.device) if keys is not None else None
@@ -101,6 +112,30 @@ class GroundingPredictor:
         self.image_size = image_size
         self.score_thresh = score_thresh
         self.atss_cfg = atss_cfg
+        self.capture = captures(self.device) and not eager
+        self._graphs: Dict[tuple, Graphed] = {}
+        self._graph_keys = None  # the keys the task-id graphs read
+
+    def _task_ids(self, b: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {"sel": infer_task_ids(self.model.extract_features(b["images"]), self.keys)}
+
+    def _forward(self, b: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        flat, _ = self.model.forward_tasks(b["images"], b["input_ids"], b["attention_mask"],
+                                           b["sel"])
+        return {k: flat[k] for k in ("bbox_pred", "centerness", "dot_logits", "anchors",
+                                     "level_counts")}
+
+    def _run(self, name: str, fn, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """`fn(inputs)`, eagerly or through its graph at these shapes."""
+        if not self.capture:
+            return fn(inputs)
+        if self._graph_keys is not self.keys:
+            self._graphs.clear()
+            self._graph_keys = self.keys
+        key = (name,) + tuple(tuple(v.shape) for v in inputs.values())
+        if key not in self._graphs:
+            self._graphs[key] = Graphed(fn, inputs)
+        return self._graphs[key](inputs)
 
     def _prepare_image(self, image: np.ndarray):
         """Distorting resize to (image_size, image_size) + BGR*255
@@ -144,17 +179,17 @@ class GroundingPredictor:
         ids, mask, offsets = self.tokenizer([caption])
         label_map = positive_map_from_spans(spans, offsets[0], ids.shape[1])
         dev = self.device
-        images = torch.from_numpy(canvas).to(dev)
+        b = {"images": torch.from_numpy(canvas).to(dev),
+             "input_ids": torch.from_numpy(ids).long().to(dev),
+             "attention_mask": torch.from_numpy(mask).to(dev)}
         with exact_fp32():
             with record_function("predict.task_id"):
                 if self.keys is not None:
-                    sel = infer_task_ids(self.model.extract_features(images), self.keys)
+                    sel = self._run("task_id", self._task_ids, {"images": b["images"]})["sel"]
                 else:
                     sel = torch.zeros((1,), dtype=torch.long, device=dev)
             with record_function("predict.forward"):
-                flat, _ = self.model.forward_tasks(
-                    images, torch.from_numpy(ids).long().to(dev),
-                    torch.from_numpy(mask).to(dev), sel)
+                flat = self._run("forward", self._forward, {**b, "sel": sel})
             kw = {}
             if self.atss_cfg is not None:
                 n = flat["anchors"].shape[0]

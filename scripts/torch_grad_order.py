@@ -5,7 +5,7 @@
 Needs one CUDA card. At full width (GLIP-T + LPI, 448 px, batch 1, fp32,
 task 1, seeded weights) it computes `GroundingLearner._losses` and the
 gradient of the task-1 pool rows, with the offset convs scaled as
-`chip_smoke.py` scales them (kernel x30, bias N(0, 1)) and without, and
+`lpi_tpu_torch.bench.honest_offsets` scales them (kernel x30, bias N(0, 1)) and without, and
 compares, by relative Frobenius error of the concatenated gradient:
 
 * the card against itself (two identical runs);
@@ -27,6 +27,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 from lpi_tpu_torch.config import GroundingConfig  # noqa: E402
+from lpi_tpu_torch.bench import honest_offsets  # noqa: E402
 from lpi_tpu_torch.continual.grounding_learner import GroundingLearner  # noqa: E402
 from lpi_tpu_torch.continual.keys import exact_fp32  # noqa: E402
 from lpi_tpu_torch.data.bert_tokenizer import BertTokenizer  # noqa: E402
@@ -40,7 +41,7 @@ TASK = 1
 def weights(cfg, scaled: bool) -> dict:
     learner = GroundingLearner(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     if scaled:
-        chip_smoke.realistic_offsets(learner.model)
+        honest_offsets(learner.model)
     return {k: v.detach().clone() for k, v in learner.model.state_dict().items()}
 
 

@@ -592,3 +592,137 @@ def test_fused_forward_entry_with_large_shared_memory_returns_0(card, B):
     torch.cuda.synchronize()
     assert err == 0
     assert torch.equal(out, tfk.fused_deform(f, oy, ox, g, w, 3, 3, 1))
+
+
+# ---- the captured steps and request (`lpi_tpu_torch.graphs`) -----------------
+def _gate_learners(route, n=2):
+    """`n` grounding learners on the gate's config (fp32, 16 channels, 64 px,
+    batch 4) with the same seeded weights, on the card."""
+    import dataclasses
+
+    from lpi_tpu_torch.bench import gate_grounding_config
+    from lpi_tpu_torch.continual.grounding_learner import GroundingLearner
+
+    cfg = gate_grounding_config()
+    cfg = dataclasses.replace(cfg, dyhead=dataclasses.replace(cfg.dyhead, deform_impl=route))
+    return [GroundingLearner(cfg, generator=torch.Generator().manual_seed(0), device="cuda")
+            for _ in range(n)]
+
+
+def _gate_batches(cfg, task=1, n=3):
+    from lpi_tpu_torch.data.bert_tokenizer import BertTokenizer
+    from lpi_tpu_torch.data.grounding import synthetic_grounding_task
+
+    ds = synthetic_grounding_task(task, 4 * n, cfg.image_size,
+                                  BertTokenizer(max_len=16, vocab_size=512))
+    return list(ds.batches(cfg.batch_size))[:n]
+
+
+@pytest.mark.parametrize("route", ["pallas", "fused"])
+def test_captured_grounding_step_equals_eager(card, route):
+    """Three steps of a session, eager and captured, from the same seeded
+    weights under deterministic algorithms: every metric and every
+    parameter equal bit for bit; one capture made; the launch counters
+    moved only while the capture's warm-up and capture ran."""
+    from lpi_tpu_torch.bench import deterministic
+
+    eager, captured = _gate_learners(route)
+    with deterministic():
+        steps = [eager.make_step(1, steps_per_epoch=1, epochs=2, eager=True),
+                 captured.make_step(1, steps_per_epoch=1, epochs=2)]
+        for batch in _gate_batches(eager.cfg):
+            want, got = (s(batch) for s in steps)
+            for k in want:
+                assert torch.equal(got[k], want[k]), k
+    assert len(captured._graphs) == 1 and not eager._graphs
+    theirs = dict(eager.model.named_parameters())
+    for name, p in captured.model.named_parameters():
+        assert torch.equal(p, theirs[name]), name
+
+
+def test_captured_retrieval_step_equals_eager(card):
+    """The retrieval gate's tiny SliNet: three steps eager and captured
+    from the same seeded weights under deterministic algorithms, equal bit
+    for bit; a second session through the same capture too."""
+    from lpi_tpu_torch.bench import deterministic, gate_retrieval_config
+    from lpi_tpu_torch.continual.learner import RetrievalLearner
+    from lpi_tpu_torch.data.retrieval import synthetic_correlated_session
+    from lpi_tpu_torch.data.tokenizer import ClipTokenizer
+
+    cfg = gate_retrieval_config()
+    eager, captured = (RetrievalLearner(cfg, generator=torch.Generator().manual_seed(0),
+                                        device="cuda") for _ in range(2))
+    with deterministic():
+        for task in (1, 2):
+            ds = synthetic_correlated_session(task, 24, 32, ClipTokenizer(), cfg.clip.n_ctx)
+            steps = [eager.make_train_step(task, 1, 2, eager=True),
+                     captured.make_train_step(task, 1, 2)]
+            for batch in list(ds.batches(cfg.batch_size, seed=0))[:3]:
+                want, got = (s(batch) for s in steps)
+                for k in want:
+                    assert torch.equal(got[k], want[k]), (task, k)
+    assert len(captured._graphs) == 1
+    theirs = dict(eager.model.named_parameters())
+    for name, p in captured.model.named_parameters():
+        assert torch.equal(p, theirs[name]), name
+
+
+def test_replay_after_honest_offsets_reads_the_new_offsets(card):
+    """A captured step, then `honest_offsets` in place: the next replay
+    equals an eager step on the perturbed weights from the same state, and
+    differs from an eager step on the unperturbed ones."""
+    from lpi_tpu_torch.bench import deterministic, honest_offsets
+
+    captured, eager, plain = _gate_learners("pallas", 3)
+    b1, b2 = _gate_batches(captured.cfg, n=2)
+    with deterministic():
+        steps = [captured.make_step(1, 1, 2),
+                 *(tl.make_step(1, 1, 2, eager=True) for tl in (eager, plain))]
+        first = [float(s(b1)["total"]) for s in steps]
+        assert first[0] == first[1] == first[2]
+        ptrs = [p.data_ptr() for p in captured.model.head.towers[0].offset.parameters()]
+        honest_offsets(captured.model)
+        honest_offsets(eager.model)
+        assert ptrs == [p.data_ptr() for p in captured.model.head.towers[0].offset.parameters()]
+        got, want, unperturbed = (s(b2) for s in steps)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+        assert not torch.equal(got["total"], unperturbed["total"])
+    theirs = dict(eager.model.named_parameters())
+    for name, p in captured.model.named_parameters():
+        assert torch.equal(p, theirs[name]), name
+
+
+def test_captured_request_equals_eager(card):
+    """The gate-sized predictor (fp32, 64 px) with seeded keys, captured and
+    eager on the same model: equal task ids and equal detections as sets,
+    over two requests (the second a replay)."""
+    import dataclasses
+
+    from lpi_tpu_torch.bench import gate_grounding_config
+    from lpi_tpu_torch.continual.keys import TaskKeys
+    from lpi_tpu_torch.data.bert_tokenizer import BertTokenizer
+    from lpi_tpu_torch.models.glip.grounding import GroundedVLModel, init_parameters
+    from lpi_tpu_torch.serve.predictor import GroundingPredictor
+
+    cfg = gate_grounding_config()
+    model = GroundedVLModel(cfg)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    keys = TaskKeys(torch.from_numpy(rng.randn(3, 5, 16).astype(np.float32)),
+                    torch.ones(3, dtype=torch.bool))
+    atss = dataclasses.replace(cfg.atss, inference_thresh=0.0)
+    preds = [GroundingPredictor(model, keys, BertTokenizer(max_len=16, vocab_size=512),
+                                image_size=64, score_thresh=0.0, atss_cfg=atss, device="cuda",
+                                eager=eager) for eager in (True, False)]
+    image = rng.randint(0, 256, size=(48, 80, 3)).astype(np.uint8)
+    for caption in ("a red ball near a box", "a blue bird over a dog"):
+        want, got = (p.predict(image, caption) for p in preds)
+        assert got["task_id"] == want["task_id"]
+        assert len(got["boxes"]) == len(want["boxes"]) > 0
+
+        def rows(r):
+            return sorted((e, float(s), tuple(map(float, b)))
+                          for e, s, b in zip(r["entities"], r["scores"], r["boxes"]))
+        assert rows(got) == rows(want)
+    assert len(preds[1]._graphs) == 2 and not preds[0]._graphs
