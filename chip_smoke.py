@@ -487,9 +487,9 @@ def same_bits(runs, what: str) -> None:
         return
     worst = max((np.linalg.norm(np.ravel(a - b)) / max(np.linalg.norm(np.ravel(a)), 1e-30), name)
                 for name, a, b in unequal)
-    log(f"{what}: captured differs from eager in bits at {len(unequal)} of {len(pairs)} values "
-        f"(the same kernels replayed: a library picked another algorithm under capture); "
-        f"largest relative Frobenius {worst[0]:.3e} at {worst[1]} (bar 1e-4)")
+    log(f"{what}: captured differs from eager in bits at {len(unequal)} of {len(pairs)} values: "
+        f"{[name for name, _, _ in unequal]}; largest relative Frobenius {worst[0]:.3e} at "
+        f"{worst[1]} (bar 1e-4)")
     if worst[0] > 1e-4:
         raise AssertionError(f"{what}: captured and eager disagree beyond the bar")
 
@@ -615,6 +615,8 @@ def train_phase(dk, fk, cfg, tok, records):
             reset_counts(dk, fk)
             losses, times = [], []
             for i in range(1 + n_steps):
+                if i == 1 and mode == "eager":
+                    reset_counts(dk, fk)
                 t = time.perf_counter()
                 metrics = step(batch)
                 torch.cuda.synchronize()
@@ -625,11 +627,13 @@ def train_phase(dk, fk, cfg, tok, records):
                         raise AssertionError(f"train step {i} ({mode}): {k} = {v}")
             peak = torch.cuda.max_memory_allocated()
             launches = launch_counts(dk, fk)
-            # the counters count host calls: every step eagerly; the warm-up
-            # and the capture when captured (a replay makes no host call)
-            calls = 1 + n_steps if mode == "eager" else WARMUP + 1
+            # the counters count host calls: the steps after the first
+            # eagerly; the warm-up and the capture when captured (a replay
+            # makes no host call)
+            calls = n_steps if mode == "eager" else WARMUP + 1
             want = expected_counts(dk, fk, cfg, calls, train=True)
-            log(f"train {route} ({mode}): {1 + n_steps} steps, launch counters {launches}")
+            log(f"train {route} ({mode}): launch counters {launches} over {calls} host calls "
+                f"of the step")
             if launches != want:
                 raise AssertionError(f"want {want} launches, got {launches}")
             med = statistics.median(times[1:])
@@ -651,7 +655,7 @@ def train_phase(dk, fk, cfg, tok, records):
             del step
     same_bits(runs, f"train {route}")
     mode_summary(runs, f"train step {route}", TRAIN_BATCH)
-    for name, n in runs["captured"]["launches"].items():
+    for name, n in runs["eager"]["launches"].items():
         if name in records and n:
             records[name]["launches"] = n
             records[name]["replay_launches_per_step"] = runs["captured"]["per_step"][name]
@@ -759,7 +763,8 @@ def predict_phase(dk, fk, model, keys, tok, cfg, image, caption, n_req=11):
     and captures both graphs): the launch counters, one request profiled
     with its deform launches by kernel name, the median latency of each
     mode, equal task ids and equal detections. -> (the captured
-    predictor, deform launches per request)."""
+    predictor, the eager launch counters over `n_req` requests, the
+    replay's deform launches per request)."""
     from lpi_tpu_torch.graphs import WARMUP
     from lpi_tpu_torch.serve.predictor import GroundingPredictor
 
@@ -776,6 +781,8 @@ def predict_phase(dk, fk, model, keys, tok, cfg, image, caption, n_req=11):
         t = time.perf_counter()
         predictor.predict(image, caption)
         first = (time.perf_counter() - t) * 1e3
+        if mode == "eager":
+            reset_counts(dk, fk)
         lat = []
         for _ in range(n_req):
             t = time.perf_counter()
@@ -783,9 +790,10 @@ def predict_phase(dk, fk, model, keys, tok, cfg, image, caption, n_req=11):
             torch.cuda.synchronize()
             lat.append((time.perf_counter() - t) * 1e3)
         launches = launch_counts(dk, fk)
-        log(f"predict {route} ({mode}): {1 + n_req} requests, launch counters {launches}")
-        want = expected_counts(dk, fk, cfg, 1 + n_req if mode == "eager" else WARMUP + 1,
-                               train=False)
+        calls = n_req if mode == "eager" else WARMUP + 1
+        log(f"predict {route} ({mode}): launch counters {launches} over {calls} host calls "
+            f"of the forward")
+        want = expected_counts(dk, fk, cfg, calls, train=False)
         if launches != want:
             raise AssertionError(f"want {want} launches, got {launches}")
         boxes, scores = result["boxes"], result["scores"]
@@ -807,6 +815,8 @@ def predict_phase(dk, fk, model, keys, tok, cfg, image, caption, n_req=11):
         per_request = check_replay_launches(dk, fk, cfg, kernels, False,
                                             f"predict {route} ({mode})")
         results[mode] = result
+        if mode == "eager":
+            eager_launches = launches
     if results["captured"]["task_id"] != results["eager"]["task_id"]:
         raise AssertionError(f"predict {route}: task ids differ, captured "
                              f"{results['captured']['task_id']}, eager "
@@ -816,7 +826,7 @@ def predict_phase(dk, fk, model, keys, tok, cfg, image, caption, n_req=11):
     log(f"predict {route}: captured and eager give task id {results['eager']['task_id']} and "
         f"the same {len(results['eager']['boxes'])} detections; median "
         f"{medians['captured']:.3f} ms captured against {medians['eager']:.3f} ms eager")
-    return predictor, per_request
+    return predictor, eager_launches, per_request
 
 
 def fp32_heads(model, cfg32, keys, canvas, ids, mask, device):
@@ -1323,14 +1333,17 @@ def main() -> int:
     tok = BertTokenizer(max_len=cfg.bert.max_query_len, vocab_size=cfg.bert.vocab_size)
     image = rng.randint(0, 256, size=(480, 640, 3)).astype(np.uint8)
     caption = "a red car parked next to a tall tree and a small dog"
-    predictor, launches = predict_phase(dk, fk, model, keys, tok, cfg, image, caption)
+    predictor, launches, per_request = predict_phase(dk, fk, model, keys, tok, cfg, image,
+                                                     caption)
     for name in ("window_accumulate_taps_inpad", "window_accumulate_taps_s2"):
-        records[name]["predict_launches_per_request"] = launches[name]
+        records[name]["predict_launches"] = launches[name]
+        records[name]["replay_launches_per_request"] = per_request[name]
     model_fused = GroundedVLModel(cfg_fused)
     model_fused.load_state_dict(model.state_dict())
-    predictor_fused, launches = predict_phase(dk, fk, model_fused, keys, tok, cfg_fused, image,
-                                              caption)
-    records["fused_deform"]["predict_launches_per_request"] = launches["fused_deform"]
+    predictor_fused, launches, per_request = predict_phase(dk, fk, model_fused, keys, tok,
+                                                           cfg_fused, image, caption)
+    records["fused_deform"]["predict_launches"] = launches["fused_deform"]
+    records["fused_deform"]["replay_launches_per_request"] = per_request["fused_deform"]
     log(f"phases 3, 3b: {time.perf_counter() - t:.3f} s")
 
     # ---- fp32: the card against the CPU, and fused against "pallas" -----

@@ -67,14 +67,10 @@ class InteractModulePool(nn.Module):
         (vis_scale, vis_bias, txt_scale, txt_bias)) for one task. `task_id`
         is an int or a 0-d integer tensor on the pool's device (a gather,
         so no read-back to the host)."""
-        if isinstance(task_id, torch.Tensor):
-            idx = task_id.reshape(1)
+        idx = torch.as_tensor(task_id, device=self.d1_v2t.device).reshape(1)
 
-            def take(p):
-                return p.index_select(0, idx)[0]
-        else:
-            def take(p):
-                return p[task_id]
+        def take(p):
+            return p.index_select(0, idx)[0]
         m_v2t = torch.einsum("lr,dr,er->lde", take(self.d1_v2t), take(self.d2_v2t),
                              take(self.d3_v2t)) / self.rank
         m_t2v = torch.einsum("lr,dr,er->lde", take(self.d1_t2v), take(self.d2_t2v),
