@@ -10,7 +10,7 @@ non-zero):
    every shape the 448 px grounding predictor (batch 1) and train step
    (batch 4) give it, in fp32 and bf16, with one launch per call and two
    calls equal bit for bit, time both (CUDA graphs; the kernel's median of
-   20 replays, the plain version's of 5) and give
+   20 replays, the plain version's of 3) and give
    each level's share of the bound (the rows of h that carry weight);
    2b. the same for the two backward kernels at the train step's shapes,
        with one launch per call, two calls equal bit for bit and each
@@ -96,6 +96,29 @@ The grounding bench line:
        `grounding_train_samples_per_sec_per_chip` and
        `grounding_train_samples_per_sec_zero_offsets`, finite and > 0.
 
+The command line (`python -m lpi_tpu_torch.cli.main`), run in this process
+under deterministic algorithms, in a temporary directory deleted after it:
+
+   12. 12a: rows 1f, 2f, 1b and 2b at P3 of the 448 px head at the command
+       line's batch 16 (bf16 maps), one call each against its plain version
+       with the bars of phases 2 and 2b, one launch a call, timed beside
+       its bound; 12b: `train-grounding --synthetic --tasks 2 --epochs 1`
+       at `GroundingConfig()` (full GLIP-T + LPI, 448 px, bf16, batch 16,
+       "pallas"): finite losses, the four window kernels launched (the
+       counters), `base/`, both sessions, their results and `latest`
+       written; 12c: `eval-all --grounding` in a fresh learner seeded 99
+       (not the writer's seed) equal to the training run's head outputs on
+       every eval batch in bits, and to its P@1/5/10 and task-ID accuracy;
+       12d: `predict` from the checkpoint, in a learner seeded 99, equal in
+       bits to a predictor on the learner that wrote it; 12e: a fresh learner captures a task-0 step, `restore`s
+       session 0 and trains task 1 through the same capture: its pools and
+       keys equal the uninterrupted run's in bits; 12f: the same for
+       `train --synthetic --sessions 2 --epochs 1` at `RetrievalConfig()`
+       with `eval --session 1` and `eval-all` (learners seeded 99) and
+       `report`; 12g: the
+       grounding checkpoint loaded on the CPU equal in bits to the card's
+       tensors, with its bytes and its save and load seconds.
+
 Each phase drops its learners and predictors, and with them their graphs'
 memory pools, before the next.
 
@@ -106,6 +129,7 @@ card's name and power limit, and `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -135,9 +159,9 @@ TOWERS = 6
 PREDICT_BATCH, TRAIN_BATCH = 1, 4
 TRAIN_TASK = 1
 REL_TOL = 1e-5  # kernel vs plain: both sum in fp32, in different orders
-# the plain versions take 5-700 ms a call: their time is the median of 5
+# the plain versions take 5-700 ms a call: their time is the median of 3
 # replays (the kernels' of 20)
-PLAIN_REPS = 5
+PLAIN_REPS = 3
 # the gate's config at 64 px: levels 8, 4, 2, 1, 1; two towers, batch 4
 GATE_S1_SHAPES = {8: 1, 4: 2, 2: 2, 1: 4}
 GATE_S2_SHAPES = {8: 1, 4: 1, 2: 1, 1: 1}
@@ -1274,6 +1298,387 @@ def retrieval_gate_phase(dk, fk):
         raise AssertionError(f"retrieval gate: {out} misses the bars {RETRIEVAL_BARS}")
 
 
+# ---- phase 12: the command line, its checkpoints and `restore` ---------------
+CLI_BATCH = 16  # `GroundingConfig().batch_size`, the command line's default
+CLI_P3 = 56  # P3 of the 448 px head
+CLI_CAPTION = "a red car parked next to a tall tree and a small dog"
+CLI_WINDOW = ("window_accumulate_taps_inpad", "window_accumulate_taps_s2",
+              "window_accumulate_taps_inpad_backward", "window_accumulate_taps_s2_backward")
+
+
+def check_batch16_kernels(dk, gen, records):
+    """Phase 12a: rows 1f, 2f, 1b and 2b at P3 of the 448 px head at the
+    command line's batch 16 (bf16 maps), one call of each against its plain
+    version with the bars of phases 2 and 2b, one launch a call; device ms
+    beside the bound, into the records (`b16_ms`, `b16_bound_ms`)."""
+    specs = ((1, dk.window_accumulate_taps_inpad, dk.window_accumulate_taps_inpad_reference,
+              dk.window_accumulate_taps_inpad_backward,
+              dk.window_accumulate_taps_inpad_backward_reference),
+             (2, dk.window_accumulate_taps_s2, dk.window_accumulate_taps_s2_reference,
+              dk.window_accumulate_taps_s2_backward,
+              dk.window_accumulate_taps_s2_backward_reference))
+    for stride, fwd, fwd_ref, bwd, bwd_ref in specs:
+        h, oy, ox, g, ct = kernel_inputs(gen, CLI_P3, stride, torch.bfloat16, CLI_BATCH)
+        args, bargs = (h, oy, ox, g, M, K, KW), (h, oy, ox, g, ct, M, K, KW)
+        where = f"b{CLI_BATCH} in {CLI_P3}x{CLI_P3}x{K * 256} stride {stride}"
+        err = _held(f"{fwd.__name__} {where}", _launched_once(fwd, *args), fwd_ref(*args))
+        ms = device_time_ms(lambda: fwd(*args), inner=10)
+        bound, kind = window_bound_ms(h, oy, 256, offsets=(ox, g, stride, M, KW))
+        log(f"kernel {fwd.__name__} bf16 {where} on {card_line()}: {ms:.6f} ms, bound "
+            f"{bound:.6f} ms ({kind}, the weighted rows of h; {100 * bound / ms:.1f}% of it), "
+            f"max abs err {err:.3e}")
+        records[fwd.__name__].update(b16_ms=ms, b16_bound_ms=bound)
+        got = _launched_once(bwd, *bargs)
+        want = bwd_ref(h.float(), oy, ox, g, ct, M, K, KW)
+        errs = [_held(f"{bwd.__name__} {where} {what}", a, b, bf16=what == "dh")
+                for what, a, b in zip(("dh", "doy", "dox", "dgate"), got, want)]
+        del got, want
+        ms = device_time_ms(lambda: bwd(*bargs), inner=10)
+        bound, kind = window_bound_ms(h, oy, 256, backward=True)
+        log(f"kernel {bwd.__name__} bf16 {where} on {card_line()}: {ms:.6f} ms, bound "
+            f"{bound:.6f} ms ({kind}; {100 * bound / ms:.1f}% of it), max abs err "
+            f"{', '.join(f'{e:.3e}' for e in errs)} (d h_all bf16)")
+        records[bwd.__name__].update(b16_ms=ms, b16_bound_ms=bound)
+        del h, oy, ox, g, ct, args, bargs
+    torch.cuda.empty_cache()
+
+
+def run_cli(*argv):
+    """`python -m lpi_tpu_torch.cli.main argv`, in this process; what it
+    prints goes to a buffer. -> (its return value, wall seconds, the
+    printed text)."""
+    import io
+
+    from lpi_tpu_torch.cli import main as cli
+
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = cli.main(list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    log(f"cli {argv[0]} on {card_line()}: {wall:.3f} s wall")
+    return out, wall, buf.getvalue()
+
+
+@contextlib.contextmanager
+def grounding_head_outputs():
+    """Records every eval batch of `GroundingLearner.evaluate`, in order, as
+    a digest of the head outputs it hands to the postprocess (box
+    regression, centerness, token logits) and the largest |box regression|;
+    what the evaluation computes is unchanged. Yields the list it fills."""
+    import hashlib
+
+    from lpi_tpu_torch.continual import grounding_learner as gl
+
+    seen, post = [], gl.atss_postprocess_batch
+
+    def record(anchors, level_counts, bbox_pred, centerness, dot_logits, *a, **kw):
+        digest = hashlib.sha256()
+        for t in (bbox_pred, centerness, dot_logits):
+            digest.update(t.detach().float().cpu().numpy().tobytes())
+        seen.append((digest.hexdigest(), float(bbox_pred.float().abs().max())))
+        return post(anchors, level_counts, bbox_pred, centerness, dot_logits, *a, **kw)
+
+    gl.atss_postprocess_batch = record
+    try:
+        yield seen
+    finally:
+        gl.atss_postprocess_batch = post
+
+
+def cpu_state(tensors) -> dict:
+    return {n: t.detach().cpu().clone() for n, t in tensors.items()}
+
+
+def same_state(got, want, what):
+    """Equal names and equal bits."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: entries differ, {sorted(set(got) ^ set(want))[:5]}")
+    for n in want:
+        g = got[n].detach().cpu()
+        if g.dtype != want[n].dtype or not torch.equal(g, want[n]):
+            raise AssertionError(f"{what}: {n} differs")
+
+
+def reseeded(work) -> str:
+    """A `--config` json that seeds both learners' initial parameters with
+    99, not the default seeds that the training commands used."""
+    path = os.path.join(work, "reseeded.json")
+    with open(path, "w") as f:
+        json.dump({"retrieval": {"seed": 99}, "grounding": {"seed": 99}}, f)
+    return path
+
+
+def train_metrics(directory, batch):
+    """Each session's train metrics from the command's metrics.jsonl, every
+    value finite; -> [(session, steps/s, total loss)]."""
+    out = []
+    with open(os.path.join(directory, "metrics.jsonl")) as f:
+        for rec in map(json.loads, f):
+            bad = {k: v for k, v in rec.items() if not np.isfinite(v)}
+            if bad:
+                raise AssertionError(f"non-finite train metrics {bad}")
+            out.append((int(rec.get("session", rec.get("task", -1))),
+                        rec["samples_per_sec"] / batch, rec["total"]))
+    return out
+
+
+def as_json(x):
+    return json.loads(json.dumps(x, default=float))
+
+
+def resume_through_capture(learner, ckpt, first, second, make, train, keys_of, want, what):
+    """A fresh `learner` captures its step at task 0 and takes one step,
+    restores session 0 of `ckpt`, then trains task 1 (`train(second)`):
+    its pools and task keys (`keys_of(learner)`) must equal `want` (the
+    uninterrupted run's after task 1) bit for bit, every parameter keeping
+    its storage."""
+    from lpi_tpu_torch.bench import deterministic
+
+    with deterministic():
+        make(0)(first)
+        ptrs = {n: p.data_ptr() for n, p in learner.model.named_parameters()}
+        learner.restore(ckpt, 0)
+        train(second)
+    torch.cuda.synchronize()
+    if len(learner._graphs) != 1:
+        raise AssertionError(f"{what}: {len(learner._graphs)} captures, want 1")
+    if ptrs != {n: p.data_ptr() for n, p in learner.model.named_parameters()}:
+        raise AssertionError(f"{what}: restore moved a parameter's storage")
+    same_state(cpu_state(learner.pools), want["pools"], f"{what} pools")
+    same_state(keys_of(learner), want["keys"], f"{what} task keys")
+    log(f"{what}: a step captured at task 0, then restore of session 0 and task 1 through "
+        f"the same capture: {len(want['pools'])} pool leaves and the task keys equal the "
+        f"uninterrupted run's bit for bit")
+
+
+def cli_grounding_phase(dk, fk, records, work):
+    """Phases 12b-12e and 12g: `train-grounding --synthetic --tasks 2
+    --epochs 1` at `GroundingConfig()` (full GLIP-T + LPI, 448 px, bf16,
+    batch 16, "pallas"); its checkpoint's size and save and load times, and
+    the checkpoint loaded on the CPU bit for bit; `eval-all --grounding`
+    equal to the training run's numbers; `predict` from the checkpoint
+    equal to a predictor on the learner that wrote it; resume through a
+    captured step."""
+    from PIL import Image
+
+    from lpi_tpu_torch.bench import deterministic
+    from lpi_tpu_torch.config import GroundingConfig
+    from lpi_tpu_torch.continual.grounding_learner import GroundingLearner
+    from lpi_tpu_torch.continual.mid import fallback_sim_matrix
+    from lpi_tpu_torch.core.checkpoint import SessionCheckpointer
+    from lpi_tpu_torch.data.bert_tokenizer import BertTokenizer
+    from lpi_tpu_torch.data.grounding import synthetic_grounding_task
+    from lpi_tpu_torch.serve.predictor import GroundingPredictor
+
+    cfg = GroundingConfig()
+    ck, res_dir = os.path.join(work, "ckpt_grounding"), os.path.join(work, "res_grounding")
+    reset_counts(dk, fk)
+    with grounding_head_outputs() as trained:
+        (path, learner), wall, _ = run_cli("train-grounding", "--synthetic", "--tasks", "2",
+                                           "--epochs", "1", "--output-dir", res_dir,
+                                           "--checkpoint-dir", ck)
+    launches = {k: v for k, v in launch_counts(dk, fk).items() if v}
+    log(f"cli train-grounding: launch counters {launches} (host calls: the capture's warm-up "
+        f"and capture, cluster_task and evaluate; replays make none)")
+    if set(launches) != set(CLI_WINDOW):
+        raise AssertionError(f"train-grounding launched {launches}, want each of {CLI_WINDOW}")
+    for name in CLI_WINDOW:
+        records[name]["cli_launches"] = launches[name]
+    for session, steps, total in train_metrics(res_dir, cfg.batch_size):
+        log(f"cli train-grounding task {session} on {card_line()}: {steps:.3f} steps/s "
+            f"(batch {cfg.batch_size}; task 0's steps include the capture), total loss "
+            f"{total:.6f}")
+    for name in ("base", "session_0", "session_1", "session_0_results.json",
+                 "session_1_results.json", "latest"):
+        if not os.path.exists(os.path.join(ck, name)):
+            raise AssertionError(f"train-grounding wrote no {name}")
+    with open(path) as f:
+        results = json.load(f)
+    def keys_of(lr):
+        return cpu_state({"centers": lr.keys.centers, "valid": lr.keys.valid})
+
+    want = {"pools": cpu_state(learner.pools), "keys": keys_of(learner)}
+
+    # 12g: the checkpoint on the CPU, its size, save and load times
+    saved = SessionCheckpointer(ck)
+    t = time.perf_counter()
+    base = saved.load_base()
+    state = saved.load_session(1)
+    load_s = time.perf_counter() - t
+    if any(v.device.type != "cpu" for v in (*base.values(), *state["pool_params"].values())):
+        raise AssertionError("a checkpoint entry loaded off the CPU")
+    same_state(base, cpu_state(learner.frozen), "checkpoint base on the CPU")
+    same_state(state["pool_params"], want["pools"], "checkpoint session 1 on the CPU")
+    same_state(state["visual_keys"], want["keys"], "checkpoint keys on the CPU")
+    again = SessionCheckpointer(os.path.join(work, "ckpt_timing"))
+    t = time.perf_counter()
+    again.save_base(learner.frozen)
+    base_s = time.perf_counter() - t
+    t = time.perf_counter()
+    again.save_session(1, learner.pools, visual_keys=learner.keys)
+    session_s = time.perf_counter() - t
+    size = {name: os.path.getsize(os.path.join(ck, name, "state.pt"))
+            for name in ("base", "session_0", "session_1")}
+    log(f"checkpoint (GroundingConfig()) on {card_line()}: base {size['base']} bytes, a "
+        f"session {size['session_1']} bytes; save from the card: base {base_s:.3f} s, session "
+        f"{session_s:.3f} s; load on the CPU (map_location cpu): base + session "
+        f"{load_s:.3f} s, every entry bit-equal to the card's")
+    del base, state, again
+
+    tok = BertTokenizer(max_len=cfg.bert.max_query_len, vocab_size=cfg.bert.vocab_size)
+    image = np.random.RandomState(12).randint(0, 256, size=(480, 640, 3)).astype(np.uint8)
+    Image.fromarray(image).save(os.path.join(work, "image.png"))
+    atss = dataclasses.replace(cfg.atss, inference_thresh=0.0)
+    with deterministic():
+        writer = GroundingPredictor(learner.model, learner.keys, tok, image_size=cfg.image_size,
+                                    score_thresh=0.0, atss_cfg=atss,
+                                    device="cuda").predict(image, CLI_CAPTION)
+    del learner
+    torch.cuda.empty_cache()
+
+    # 12c: every saved task evaluated again in a fresh learner, seeded
+    # differently from the writer, so that only what the checkpoint holds
+    # can give the writer's numbers
+    with grounding_head_outputs() as again:
+        out, _, _ = run_cli("eval-all", "--grounding", "--synthetic", "--checkpoint-dir", ck,
+                            "--config", reseeded(work))
+    if not trained or [d for d, _ in again] != [d for d, _ in trained]:
+        raise AssertionError(f"eval-all --grounding: the head outputs of its {len(again)} eval "
+                             f"batches differ from the training run's {len(trained)}")
+    if min(m for _, m in trained) <= 0:
+        raise AssertionError("the training run's eval gave an all-zero box regression")
+    log(f"cli eval-all --grounding (a fresh learner seeded 99): the head outputs of its "
+        f"{len(again)} eval batches equal the training run's in bits (largest |box "
+        f"regression| per batch {min(m for _, m in trained):.6f} to "
+        f"{max(m for _, m in trained):.6f})")
+    for s in (0, 1):
+        got, rec = as_json(out[s]), results[str(s)]
+        if (got["overall"], got["per_task"], got["task_id_accuracy"]) != (
+                rec["overall"], rec["per_task"], rec["task_id_accuracy"]):
+            raise AssertionError(f"eval-all --grounding task {s}: {got}, trained {rec}")
+        log(f"cli eval-all --grounding task {s}: P@1/5/10 {got['overall']}, task-ID "
+            f"{got['task_id_accuracy']}, equal to the training run's")
+
+    # 12d: predict from the checkpoint
+    pcfg = os.path.join(work, "predict.json")
+    with open(pcfg, "w") as f:
+        json.dump({"grounding": {"seed": 99, "atss": {"inference_thresh": 0.0}}}, f)
+    got, _, _ = run_cli("predict", os.path.join(work, "image.png"), CLI_CAPTION, "--config", pcfg,
+                        "--checkpoint-dir", ck, "--thresh", "0",
+                        "--output", os.path.join(work, "prediction.png"))
+    if not (got["task_id"] == writer["task_id"] and got["entities"] == writer["entities"]
+            and len(got["boxes"]) > 0 and np.array_equal(got["boxes"], writer["boxes"])
+            and np.array_equal(got["scores"], writer["scores"])):
+        raise AssertionError("predict from the checkpoint differs from the writer's predictor")
+    log(f"cli predict: task id {got['task_id']} and {len(got['boxes'])} detections equal to "
+        f"the writer's predictor bit for bit")
+    torch.cuda.empty_cache()
+
+    # 12e: resume through a captured step
+    learner = GroundingLearner(cfg, task_sim_matrix=fallback_sim_matrix(cfg.total_tasks),
+                               device="cuda")
+    sets = {t: synthetic_grounding_task(t, max(cfg.batch_size * 2, 8), cfg.image_size, tok,
+                                        cfg.max_boxes) for t in (0, 1)}
+    resume_through_capture(
+        learner, SessionCheckpointer(ck), next(sets[0].batches(cfg.batch_size)), sets[1],
+        lambda task: learner.make_step(task, 2, 1),
+        lambda ds: learner.train_task(ds, epochs=1), keys_of, want, "resume (grounding)")
+    del learner, sets
+    torch.cuda.empty_cache()
+
+
+def cli_retrieval_phase(dk, fk, work):
+    """Phase 12f: `train --synthetic --sessions 2 --epochs 1` at
+    `RetrievalConfig()` (CLIP ViT-B/16 + LPI, 224 px, batch 64, bf16), no
+    deform kernel launched; `eval --session 1` and `eval-all` equal to the
+    training run's numbers; `report`; resume through a captured step."""
+    from lpi_tpu_torch.config import RetrievalConfig
+    from lpi_tpu_torch.continual.learner import RetrievalLearner
+    from lpi_tpu_torch.continual.mid import fallback_sim_matrix
+    from lpi_tpu_torch.core.checkpoint import SessionCheckpointer
+    from lpi_tpu_torch.data.retrieval import synthetic_session
+    from lpi_tpu_torch.data.tokenizer import ClipTokenizer
+
+    cfg = RetrievalConfig()
+    ck, res_dir = os.path.join(work, "ckpt_retrieval"), os.path.join(work, "res_retrieval")
+    reset_counts(dk, fk)
+    (path, learner), _, _ = run_cli("train", "--synthetic", "--sessions", "2", "--epochs", "1",
+                                    "--output-dir", res_dir, "--checkpoint-dir", ck)
+    launches = {k: v for k, v in launch_counts(dk, fk).items() if v}
+    if launches:
+        raise AssertionError(f"train launched deform kernels: {launches}")
+    for session, steps, total in train_metrics(res_dir, cfg.batch_size):
+        log(f"cli train session {session} on {card_line()}: {steps:.3f} steps/s (batch "
+            f"{cfg.batch_size}; session 0's steps include the capture), total loss {total:.6f}")
+    with open(path) as f:
+        results = json.load(f)
+    def keys_of(lr):
+        return cpu_state({f"{side}.{f}": getattr(getattr(lr, f"{side}_keys"), f)
+                          for side in ("visual", "textual") for f in ("centers", "valid")})
+
+    want = {"pools": cpu_state(learner.pools), "keys": keys_of(learner)}
+    del learner
+    torch.cuda.empty_cache()
+
+    res, _, _ = run_cli("eval", "--synthetic", "--checkpoint-dir", ck, "--session", "1",
+                        "--config", reseeded(work))
+    got = as_json({"mscoco": {"i2t": res["i2t"], "t2i": res["t2i"]}, "summary": res["summary"],
+                   "task_id_accuracy": res["task_id_accuracy"]})
+    if got != results["1"]:
+        raise AssertionError(f"eval --session 1: {got}, trained {results['1']}")
+    out, _, _ = run_cli("eval-all", "--synthetic", "--checkpoint-dir", ck,
+                        "--config", reseeded(work))
+    for s in (0, 1):
+        rec = results[str(s)]
+        if as_json(out[s]) != {"summary": rec["summary"],
+                               "task_id_accuracy": rec["task_id_accuracy"]}:
+            raise AssertionError(f"eval-all session {s}: {out[s]}, trained {rec}")
+    log(f"cli eval --session 1 and eval-all: R@k, summaries and task-ID accuracies equal to "
+        f"the training run's (session 1: r_mean {results['1']['summary']['r_mean']:.3f}, "
+        f"task-ID {results['1']['task_id_accuracy']})")
+    rep, _, _ = run_cli("report", path)
+    log(f"cli report: {json.dumps(rep)}")
+
+    learner = RetrievalLearner(cfg, task_sim_matrix=fallback_sim_matrix(cfg.total_sessions),
+                               device="cuda")
+    tok, size = ClipTokenizer(), cfg.clip.image_resolution
+    sets = [synthetic_session(t, max(cfg.batch_size * 2, 16), size, tok, cfg.clip.n_ctx)
+            for t in (0, 1)]
+    resume_through_capture(
+        learner, SessionCheckpointer(ck), next(sets[0].batches(cfg.batch_size)), sets[1],
+        lambda task: learner.make_train_step(task, 2, 1),
+        lambda ds: learner.train_session(ds, epochs=1), keys_of, want, "resume (retrieval)")
+    del learner, sets
+    torch.cuda.empty_cache()
+
+
+def cli_phase(dk, fk, gen, records):
+    """Phase 12: the batch-16 kernels, then the command line at full width
+    in a temporary directory that is deleted afterwards, under
+    deterministic algorithms."""
+    import shutil
+    import tempfile
+
+    from lpi_tpu_torch.bench import deterministic
+
+    t = time.perf_counter()
+    check_batch16_kernels(dk, gen, records)
+    log(f"phase 12a: {time.perf_counter() - t:.3f} s")
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        with deterministic():
+            t = time.perf_counter()
+            cli_grounding_phase(dk, fk, records, work)
+            log(f"phases 12b-12e, 12g: {time.perf_counter() - t:.3f} s")
+            t = time.perf_counter()
+            cli_retrieval_phase(dk, fk, work)
+            log(f"phase 12f: {time.perf_counter() - t:.3f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1393,6 +1798,11 @@ def main() -> int:
     t = time.perf_counter()
     grounding_bench_phase()
     log(f"phase 11: {time.perf_counter() - t:.3f} s")
+
+    # ---- the command line, its checkpoints and restore -------------------
+    t = time.perf_counter()
+    cli_phase(dk, fk, gen, records)
+    log(f"phase 12: {time.perf_counter() - t:.3f} s")
 
     for rec in records.values():
         kinds = rec.pop("bound_kinds")

@@ -3,13 +3,13 @@
 task pools that a session trains and the frozen rest, by name substring;
 optax's `clip_by_global_norm` and `adamw` written out (both learners'
 full-parameter pretrain, the grounding sessions); the per-epoch cosine
-learning rates."""
+learning rates; the in-place checkpoint load of both learners' `restore`."""
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,6 +31,40 @@ def freeze(model: nn.Module, pool_keys: Sequence[str]
         p.requires_grad_(is_pool)
         (pools if is_pool else frozen)[name] = p
     return pools, frozen
+
+
+def restore_in_place(checkpointer, session: Optional[int],
+                     params: Mapping[str, torch.Tensor]) -> Tuple[int, dict]:
+    """Load a `core.checkpoint.SessionCheckpointer` session (the latest by
+    default): its frozen base and pools go into `params` (`load_in_place`).
+    -> (the session, its state, whose task keys the caller takes)."""
+    session = checkpointer.latest_session() if session is None else session
+    if session is None:
+        raise ValueError("checkpoint directory has no sessions")
+    state = checkpointer.load_session(session)
+    load_in_place(params, {**checkpointer.load_base(), **state["pool_params"]})
+    return session, state
+
+
+@torch.no_grad()
+def load_in_place(params: Mapping[str, torch.Tensor], state: Mapping[str, torch.Tensor]) -> None:
+    """Copy `state` into `params` entry by entry, in place. Each tensor keeps
+    its storage, so a step captured before the load (which reads every
+    parameter at its capture address) trains the loaded values. Every name,
+    shape and dtype is checked before anything is copied, and the first
+    mismatch is named: a refused checkpoint leaves `params` as they were."""
+    for name, p in params.items():
+        if name not in state:
+            raise ValueError(f"checkpoint has no entry {name!r}")
+        v = state[name]
+        if v.shape != p.shape or v.dtype != p.dtype:
+            raise ValueError(f"checkpoint entry {name!r} is {v.dtype} {tuple(v.shape)}, the "
+                             f"model's {p.dtype} {tuple(p.shape)}")
+    extra = [name for name in state if name not in params]
+    if extra:
+        raise ValueError(f"checkpoint entry {extra[0]!r} is not in the model")
+    for name, p in params.items():
+        p.copy_(state[name])
 
 
 @dataclass

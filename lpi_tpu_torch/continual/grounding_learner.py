@@ -18,6 +18,11 @@ pools alone, as JAX differentiates with respect to them alone.
 the task keys, runs the eval forward with that task's prompts, postprocesses
 the boxes of the first entity and scores RefExp P@1/5/10 (GIoU >= 0.5) per
 task, with the task-ID accuracy beside it.
+
+`restore` loads a `core.checkpoint.SessionCheckpointer` task (the frozen
+base and that task's pools) into the model's own tensors, in place, so a
+step captured before it trains the restored weights; the task keys, which
+no captured step reads, are replaced.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import torch
 from lpi_tpu_torch.config import GroundingConfig
 from lpi_tpu_torch.continual.common import (AdamState, adamw_apply,  # noqa: F401
                                              adamw_update, clip_by_global_norm, freeze,
-                                             staged_lrs)
+                                             restore_in_place, staged_lrs)
 from lpi_tpu_torch.continual.keys import TaskKeys, exact_fp32, infer_task_ids
 from lpi_tpu_torch.data.grounding import GroundingTaskSet
 from lpi_tpu_torch.eval.refexp import RefExpEvaluator
@@ -250,6 +255,17 @@ class GroundingLearner:
                                         feats.shape[-1], device=self.device)
         centers, _ = kmeans(feats, torch.Generator().manual_seed(0), k=cfg.num_key_clusters)
         self.keys = self.keys.update(dataset.task_index, centers)
+
+    def restore(self, checkpointer, session: Optional[int] = None) -> int:
+        """Load the frozen base and a task's pools and keys (the latest task
+        by default) from a `SessionCheckpointer`, in place; -> the task
+        restored. A checkpoint whose names or shapes differ from the
+        model's is refused, naming the first mismatch."""
+        session, state = restore_in_place(checkpointer, session, {**self.frozen, **self.pools})
+        if "visual_keys" in state:
+            self.keys = TaskKeys.from_state(state["visual_keys"], self.cfg.total_tasks,
+                                            self.cfg.num_key_clusters, self.device)
+        return session
 
     def evaluate(self, task_sets: Mapping[int, GroundingTaskSet],
                  batch_size: Optional[int] = None) -> dict:

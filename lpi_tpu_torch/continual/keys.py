@@ -49,6 +49,16 @@ class TaskKeys:
         v[task_id] = True
         return replace(self, centers=c, valid=v)
 
+    @staticmethod
+    def from_state(state, num_tasks: int, k: int, device=None) -> "TaskKeys":
+        """Keys from a checkpoint's {"centers", "valid"}, which must hold
+        `num_tasks` tasks of `k` centres each."""
+        centers, valid = state["centers"], state["valid"]
+        if tuple(centers.shape[:2]) != (num_tasks, k) or tuple(valid.shape) != (num_tasks,):
+            raise ValueError(f"checkpoint keys hold centres {tuple(centers.shape)} and valid "
+                             f"{tuple(valid.shape)}, the model {num_tasks} tasks of {k}")
+        return TaskKeys(centers.to(device, torch.float32), valid.to(device, torch.bool))
+
     def to(self, device) -> "TaskKeys":
         return TaskKeys(self.centers.to(device), self.valid.to(device))
 

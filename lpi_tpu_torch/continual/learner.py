@@ -27,7 +27,12 @@ values for its shape of work.
 `clip_by_global_norm(1.0)` then `adamw(weight_decay=0)`
 (`continual.common`): the role the OpenAI CLIP weights play in the real
 recipe, which the quality gate needs because the repo carries no
-checkpoint. `restore` and the checkpoint are not ported yet (ROADMAP A8).
+checkpoint.
+
+`restore` loads a `core.checkpoint.SessionCheckpointer` session (the frozen
+base and that session's pools) into the model's own tensors, in place, so a
+step captured before it trains the restored weights; the task keys, which
+no captured step reads, are replaced.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ import torch
 
 from lpi_tpu_torch.config import RetrievalConfig
 from lpi_tpu_torch.continual.common import AdamState, adamw_update, clip_by_global_norm, \
-    freeze, staged_lrs
+    freeze, restore_in_place, staged_lrs
 from lpi_tpu_torch.continual.keys import TaskKeys, exact_fp32, infer_task_ids
 from lpi_tpu_torch.continual.mid import task_relation
 from lpi_tpu_torch.data.retrieval import RetrievalEvalSet, RetrievalTrainSet
@@ -296,8 +301,17 @@ class RetrievalLearner:
         return res
 
     def restore(self, checkpointer, session: Optional[int] = None) -> int:
-        raise NotImplementedError("restore and the session checkpoint are not ported yet "
-                                  "(ROADMAP A8)")
+        """Load the frozen base and a session's pools and task keys (the
+        latest session by default) from a `SessionCheckpointer`, in place;
+        -> the session restored. A checkpoint whose names or shapes differ
+        from the model's is refused, naming the first mismatch."""
+        session, state = restore_in_place(checkpointer, session, {**self.frozen, **self.pools})
+        T, k = self.cfg.total_sessions, self.cfg.num_key_clusters
+        if "visual_keys" in state:
+            self.visual_keys = TaskKeys.from_state(state["visual_keys"], T, k, self.device)
+        if "textual_keys" in state:
+            self.textual_keys = TaskKeys.from_state(state["textual_keys"], T, k, self.device)
+        return session
 
     def run(self, train_sets, eval_sets, epochs: Optional[int] = None) -> dict:
         """The full continual loop: each session trained, then evaluated

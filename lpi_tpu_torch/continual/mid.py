@@ -10,7 +10,7 @@ is none.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -30,6 +30,16 @@ def cosine_similarity_matrix(embeddings: np.ndarray) -> np.ndarray:
     e = np.asarray(embeddings, np.float64)
     e = e / np.linalg.norm(e, axis=-1, keepdims=True)
     return e @ e.T
+
+
+def load_task_sim_matrix(path: str, num_tasks: Optional[int] = None) -> np.ndarray:
+    """Read a whitespace-separated similarity matrix (the
+    `MID/task_sim_matrix.txt` format), cut to its first `num_tasks` rows and
+    columns."""
+    m = np.loadtxt(path)
+    if num_tasks is not None:
+        m = m[:num_tasks, :num_tasks]
+    return m
 
 
 def task_relation(sim_matrix: np.ndarray, threshold: float = 0.4) -> np.ndarray:

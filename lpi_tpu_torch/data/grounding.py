@@ -1,22 +1,31 @@
-"""Grounding task sets and the synthetic referring-expression fixture (host
-copy of the parts of `lpi_tpu/data/grounding.py` that the train step and
-the evaluation use).
+"""Grounding task sets: mdetr-format RefExp with the 12-supercategory
+continual split, and the synthetic referring-expression fixture (host copy
+of the parts of `lpi_tpu/data/grounding.py` that the train step, the
+evaluation and the command line use).
 
-Batches are static-shape numpy dicts: images as stored, GT boxes padded to
-`max_boxes` with a validity mask, text tokenized to `max_len` tokens with a
-token-level positive map per box. The shuffling and the synthetic data use
-numpy's `RandomState` exactly as the JAX package does, so both packages see
-equal batches. The train-time augmentation pipeline is not ported yet.
+Batches are static-shape numpy dicts: images of one fixed size, GT boxes
+padded to `max_boxes` with a validity mask, text tokenized to `max_len`
+tokens with a token-level positive map per box. With `augment_size` set,
+`batches()` runs the train transforms and `eval_batches()` the eval
+transforms (`data/transforms.py`) at that side; without it images pass
+through as stored (the synthetic fixture). The shuffling, the random flips
+and the synthetic data use numpy's `RandomState` exactly as the JAX package
+does, so both packages see equal batches. A RefExp image belongs to the task of
+the COCO supercategory of its first annotation.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from lpi_tpu_torch.continual.mid import SUPERCATEGORY_TO_TASK
 from lpi_tpu_torch.data.bert_tokenizer import BertTokenizer, positive_map_from_spans
+from lpi_tpu_torch.data.transforms import eval_transform, train_transform
 
 
 @dataclass
@@ -36,45 +45,52 @@ class GroundingTaskSet:
     tokenizer: BertTokenizer
     max_boxes: int = 20
     task_index: int = 0
-    augment: Optional[object] = None
-
-    def __post_init__(self):
-        if self.augment is not None:
-            raise NotImplementedError("the train-time augmentation is not ported yet")
+    augment_size: Optional[int] = None
 
     def __len__(self):
         return len(self.examples)
 
-    def _pack(self, batch: Sequence[GroundingExample]) -> Dict[str, np.ndarray]:
+    def _pack(self, batch: Sequence[GroundingExample],
+              rng: Optional[np.random.RandomState] = None) -> Dict[str, np.ndarray]:
+        """The batch's arrays; with `augment_size`, each example through the
+        train transforms (drawing from `rng`) or, without `rng`, the eval
+        transforms."""
         B = len(batch)
         max_len = self.tokenizer.max_len
         ids, mask, offsets = self.tokenizer([e.caption for e in batch])
         G = self.max_boxes
+        images = []
         boxes = np.zeros((B, G, 4), np.float32)
         valid = np.zeros((B, G), bool)
         pmap = np.zeros((B, G, max_len), np.float32)
         for i, e in enumerate(batch):
-            g = min(len(e.boxes), G)
-            boxes[i, :g] = e.boxes[:g]
+            img, bx = e.image, e.boxes
+            if self.augment_size is not None:
+                img, bx = (train_transform(rng, img, bx, self.augment_size) if rng is not None
+                           else eval_transform(img, bx, self.augment_size))
+            images.append(img)
+            g = min(len(bx), G)
+            boxes[i, :g] = bx[:g]
             valid[i, :g] = True
             pmap[i, :g] = positive_map_from_spans(e.token_spans[:g], offsets[i], max_len)
-        return {"images": np.stack([e.image for e in batch]), "input_ids": ids,
-                "attention_mask": mask, "gt_boxes": boxes, "gt_valid": valid,
-                "positive_map": pmap}
+        return {"images": np.stack(images), "input_ids": ids, "attention_mask": mask,
+                "gt_boxes": boxes, "gt_valid": valid, "positive_map": pmap}
 
     def batches(self, batch_size: int, seed: int = 0,
                 drop_remainder: bool = True) -> Iterator[dict]:
-        """Shuffled batches (numpy RandomState(seed)); without
-        `drop_remainder` the last batch is filled from the start of the
-        order."""
+        """Shuffled batches (numpy RandomState(seed), which also draws the
+        augmentation); without `drop_remainder` the last batch is filled
+        from the start of the order."""
         n = len(self)
-        order = np.random.RandomState(seed).permutation(n)
+        rng = np.random.RandomState(seed)
+        order = rng.permutation(n)
         end = n - n % batch_size if drop_remainder else n
         for i in range(0, end, batch_size):
             idx = order[i:i + batch_size]
             if len(idx) < batch_size:
                 idx = np.concatenate([idx, order[:batch_size - len(idx)]])
-            yield self._pack([self.examples[j] for j in idx])
+            yield self._pack([self.examples[j] for j in idx],
+                             rng=rng if self.augment_size is not None else None)
 
     def eval_batches(self, batch_size: int) -> Iterator[tuple]:
         """Batches in order -> (batch, real, indices): the last batch is
@@ -91,10 +107,53 @@ class GroundingTaskSet:
     @classmethod
     def concat(cls, sets: Sequence["GroundingTaskSet"]) -> "GroundingTaskSet":
         """One task set over the concatenated examples (the first set's
-        tokenizer, box padding and task index)."""
+        tokenizer, box padding, task index and augmentation)."""
         first = sets[0]
         return cls([e for s in sets for e in s.examples], first.tokenizer,
-                   max_boxes=first.max_boxes, task_index=first.task_index)
+                   max_boxes=first.max_boxes, task_index=first.task_index,
+                   augment_size=first.augment_size)
+
+
+def load_mdetr_refexp(ann_file: str, image_root: str, task_id: int,
+                      tokenizer: Optional[BertTokenizer] = None, image_size: int = 448,
+                      max_boxes: int = 20) -> GroundingTaskSet:
+    """An mdetr-annotated RefExp COCO json, filtered to one task: images
+    carry `file_name` and `caption`, annotations an xywh `bbox`,
+    `tokens_positive` char spans and a category id whose supercategory names
+    the task (that of the image's first annotation). Images are stored
+    distort-resized (PIL bilinear) to `image_size`, RGB in [0, 1], with the
+    boxes scaled to match; its batches run the transforms at that side."""
+    from PIL import Image
+
+    with open(ann_file) as f:
+        coco = json.load(f)
+    cats = {c["id"]: c for c in coco.get("categories", [])}
+    anns_by_img: Dict[int, list] = {}
+    for a in coco["annotations"]:
+        anns_by_img.setdefault(a["image_id"], []).append(a)
+
+    examples = []
+    for img in coco["images"]:
+        anns = anns_by_img.get(img["id"])
+        if not anns:
+            continue
+        super_name = cats.get(anns[0]["category_id"], {}).get("supercategory", "")
+        if SUPERCATEGORY_TO_TASK.get(super_name, -1) != task_id:
+            continue
+        with Image.open(os.path.join(image_root, img["file_name"])) as im:
+            im = im.convert("RGB")
+            W0, H0 = im.size
+            arr = np.asarray(im.resize((image_size, image_size), Image.BILINEAR),
+                             np.float32) / 255.0
+        sx, sy = image_size / W0, image_size / H0
+        boxes = [[x * sx, y * sy, (x + w) * sx, (y + h) * sy]
+                 for x, y, w, h in (a["bbox"] for a in anns)]
+        spans = [[tuple(s) for s in a.get("tokens_positive", [])] for a in anns]
+        examples.append(GroundingExample(image=arr, caption=img.get("caption", ""),
+                                         boxes=np.asarray(boxes, np.float32),
+                                         token_spans=spans, task_index=task_id))
+    return GroundingTaskSet(examples, tokenizer or BertTokenizer(), max_boxes=max_boxes,
+                            task_index=task_id, augment_size=image_size)
 
 
 def synthetic_grounding_task(task_index: int, num_samples: int = 8, image_size: int = 64,

@@ -1,8 +1,10 @@
-"""Grounding eval transforms (host copy of the parts of
-`lpi_tpu/data/transforms.py` that inference uses).
+"""Grounding train and eval transforms (host copy of the path of
+`lpi_tpu/data/transforms.py` that the RefExp loader runs).
 
 The reference pipeline hardcodes a distorting square resize (448x448,
-`restrict=True`) and normalises BGR*255 pixels with PIXEL_MEAN/PIXEL_STD.
+`restrict=True`), flips half the training images and normalises BGR*255
+pixels with PIXEL_MEAN/PIXEL_STD. Its flag-gated colour jitter and
+multi-scale sizes, off by default, are not ported: nothing here sets them.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 # INPUT.PIXEL_MEAN / PIXEL_STD, applied to BGR255 pixels (INPUT.TO_BGR255)
 PIXEL_MEAN = np.asarray([103.530, 116.280, 123.675], np.float32)
 PIXEL_STD = np.asarray([57.375, 57.120, 58.395], np.float32)
+FLIP_PROB = 0.5  # AUGMENT.FLIP_PROB_TRAIN
 
 
 def resize_distort(image: np.ndarray, boxes: np.ndarray,
@@ -37,3 +40,30 @@ def normalize_bgr255(image_rgb01: np.ndarray) -> np.ndarray:
     PIXEL_STD."""
     bgr = image_rgb01[..., ::-1] * 255.0
     return ((bgr - PIXEL_MEAN) / PIXEL_STD).astype(np.float32)
+
+
+def hflip(image: np.ndarray, boxes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Horizontal flip with its box transform."""
+    W = image.shape[1]
+    out = image[:, ::-1].copy()
+    if len(boxes):
+        boxes = np.asarray(boxes, np.float32)
+        boxes = np.stack([W - boxes[:, 2], boxes[:, 1], W - boxes[:, 0], boxes[:, 3]], axis=-1)
+    return out, boxes
+
+
+def train_transform(rng: np.random.RandomState, image: np.ndarray, boxes: np.ndarray,
+                    image_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """One example through the train pipeline (image float RGB in [0, 1]):
+    -> (image [image_size, image_size, 3], boxes in resized pixels)."""
+    image, boxes = resize_distort(image, boxes, image_size, image_size)
+    if rng.rand() < FLIP_PROB:
+        image, boxes = hflip(image, boxes)
+    return normalize_bgr255(image), np.asarray(boxes, np.float32).reshape(-1, 4)
+
+
+def eval_transform(image: np.ndarray, boxes: np.ndarray,
+                   image_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The eval pipeline: the fixed restrict-resize and the normalisation."""
+    image, boxes = resize_distort(image, boxes, image_size, image_size)
+    return normalize_bgr255(image), np.asarray(boxes, np.float32).reshape(-1, 4)

@@ -667,6 +667,58 @@ def test_captured_retrieval_step_equals_eager(card):
         assert torch.equal(p, theirs[name]), name
 
 
+@pytest.mark.parametrize("kind", ["grounding", "retrieval"])
+def test_step_captured_before_restore_trains_the_restored_weights(card, kind, tmp_path):
+    """A learner captures its step at task 0 and takes one step, then
+    `restore`s a checkpoint (written by another learner after two eager
+    steps) and trains task 1 through the same capture: every metric and
+    parameter equals, bit for bit, a learner that restored first and
+    stepped eagerly. If `restore` rebound the parameters, the replays
+    would go on training the old ones."""
+    from lpi_tpu_torch.bench import deterministic, gate_retrieval_config
+    from lpi_tpu_torch.continual.learner import RetrievalLearner
+    from lpi_tpu_torch.core.checkpoint import SessionCheckpointer
+    from lpi_tpu_torch.data.retrieval import synthetic_correlated_session
+    from lpi_tpu_torch.data.tokenizer import ClipTokenizer
+
+    if kind == "grounding":
+        writer, captured, eager = _gate_learners("pallas", 3)
+        batches = {t: _gate_batches(writer.cfg, task=t, n=2) for t in (0, 1)}
+
+        def make(learner, task, **kw):
+            return learner.make_step(task, 1, 2, **kw)
+    else:
+        cfg = gate_retrieval_config()
+        writer, captured, eager = (RetrievalLearner(cfg, device="cuda") for _ in range(3))
+        batches = {t: list(synthetic_correlated_session(t, 16, 32, ClipTokenizer(),
+                                                        cfg.clip.n_ctx).batches(8))[:2]
+                   for t in (0, 1)}
+
+        def make(learner, task, **kw):
+            return learner.make_train_step(task, 1, 2, **kw)
+    with deterministic():
+        step = make(writer, 0, eager=True)
+        for batch in batches[0]:
+            step(batch)
+        ck = SessionCheckpointer(tmp_path)
+        ck.save_base(writer.frozen)
+        ck.save_session(0, writer.pools)
+        make(captured, 0)(batches[1][0])  # captures, and moves task 0's rows
+        ptrs = {n: p.data_ptr() for n, p in captured.model.named_parameters()}
+        captured.restore(ck)
+        eager.restore(ck)
+        steps = [make(captured, 1), make(eager, 1, eager=True)]
+        for batch in batches[1]:
+            got, want = (s(batch) for s in steps)
+            for k in want:
+                assert torch.equal(got[k], want[k]), k
+    assert len(captured._graphs) == 1
+    assert ptrs == {n: p.data_ptr() for n, p in captured.model.named_parameters()}
+    theirs = dict(eager.model.named_parameters())
+    for name, p in captured.model.named_parameters():
+        assert torch.equal(p, theirs[name]), name
+
+
 def test_replay_after_honest_offsets_reads_the_new_offsets(card):
     """A captured step, then `honest_offsets` in place: the next replay
     equals an eager step on the perturbed weights from the same state, and

@@ -290,10 +290,15 @@ def test_pretrain_three_steps_match_jax(pair):
     assert not any(p.requires_grad for p in tl.frozen.values())
 
 
-def test_pool_split_freezes_the_towers(pair):
+def test_pool_split_freezes_the_towers(pair, tmp_path):
+    """The pools and the frozen towers; `restore` (ported since) refuses a
+    directory without sessions (`tests/test_torch_checkpoint.py` holds the
+    rest of it)."""
+    from lpi_tpu_torch.core.checkpoint import SessionCheckpointer
+
     _, tl = pair
     assert set(tl.pools) == {"ctx_pool", "prompts.d1_share", "prompts.d2_visual",
                              "prompts.d2_textual", "prompts.d3_visual", "prompts.d3_textual"}
     assert not any(p.requires_grad for p in tl.frozen.values())
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tl.restore(None)
+    with pytest.raises(ValueError, match="no sessions"):
+        tl.restore(SessionCheckpointer(tmp_path))
