@@ -36,7 +36,10 @@ non-zero):
    kernels, peak memory; the replayed step's deform launches read from
    the kernel names (54 / 24 / 54 / 24);
 6. compute one fp32 `_losses` and its pool gradients at batch 1 on the card
-   and on the CPU from the same seeded weights and compare them.
+   and on the CPU from the same seeded weights and compare them, the
+   concatenated gradient and each leaf's (a leaf over the bar read again
+   with every module's output on the CPU set to the card's, which puts
+   both backwards on the same side of the network's kinks).
 
 The fused deformable conv (`deform_impl="fused"`) and the quality gate:
 
@@ -55,7 +58,8 @@ The fused deformable conv (`deform_impl="fused"`) and the quality gate:
        pool gradient, card vs CPU, as phase 6 does;
    7.  run the grounding quality gate (`lpi_tpu_torch.bench`) with the
        gate's own config and with `deform_impl="fused"`, each held to the
-       gate's bars; its sessions run the captured step.
+       gate's bars; its sessions run the captured step. The fused one runs
+       in a child process beside the other, as does phase 10's.
 
 The pre-padded window sums (`window_accumulate_taps`, `window_accumulate`)
 and their path:
@@ -83,10 +87,13 @@ plain torch ops, as they are XLA code in the JAX package):
        one step profiled; then `cluster_task` and one `evaluate` at full
        width on a small 2-task set;
    9b. one fp32 `_losses` and its pool gradient at full width and 2 layers
-       a tower, card vs CPU, TF32 off, relative Frobenius 1e-4;
+       a tower, card vs CPU, TF32 off, relative Frobenius 1e-4, the
+       concatenated gradient and each leaf's;
    10. the retrieval quality gate (`bench_quality_retrieval`) under
        deterministic algorithms, held to its bars, printed beside the JAX
-       package's values on a TPU; its sessions run the captured step.
+       package's values on a TPU; its sessions run the captured step. It
+       runs in phase 7's slot, in a child process beside the grounding
+       gates (the three are host-bound and time nothing but themselves).
 
 The grounding bench line:
 
@@ -118,6 +125,32 @@ under deterministic algorithms, in a temporary directory deleted after it:
        `report`; 12g: the
        grounding checkpoint loaded on the CPU equal in bits to the card's
        tensors, with its bytes and its save and load seconds.
+
+The baseline prompt types (`configs/baselines/`), at full width with seeded
+weights, under deterministic algorithms:
+
+   13. 13a: the retrieval step of phase 9 at `RetrievalConfig()` with the
+       lpi section of `sprompts.json`, of `l2p.json` and with
+       `prompt_type="clip"`: 1 + 10 steps eager and 1 + 10 captured from
+       the same start, losses finite with the type's keys (the auxiliary
+       losses are "lpi"'s alone), captured equal to eager in bits, only
+       row 1 of every pool leaf moved (L2P's shared pool included), no
+       deform kernel launched, median, samples/s and peak memory; then
+       `cluster_task` and `evaluate` on the 2-task set (S-Prompts, CLIP),
+       or the named error where the reference has no L2P evaluation; 13b:
+       phase 9b's fp32 loss and pool gradient, card vs CPU, for S-Prompts
+       and L2P, with L2P's chosen entries equal; 13c: phase 5's step
+       ("pallas", batch 4, `honest_offsets`) with the grounding section of
+       `sprompts.json` and with `maple.json` (54 / 24 / 54 / 24 launches by
+       the counters and by kernel name, captured equal to eager in bits,
+       the frozen parameters and other rows unchanged), then one request
+       of each trained model eager and captured, equal; 13d: phase 6's
+       fp32 loss and pool gradient at batch 1, card vs CPU, each leaf too,
+       for both pools (MaPLe's replace mode and the encoder without
+       interaction on the card); 13e: `train-grounding --config configs/baselines/maple.json
+       --synthetic --tasks 2 --epochs 1` at `GroundingConfig()`, then
+       `eval-all --grounding` in a learner seeded 99, equal to the
+       training run's head outputs and results in bits.
 
 Each phase drops its learners and predictors, and with them their graphs'
 memory pools, before the next.
@@ -600,7 +633,7 @@ def expected_counts(dk, fk, cfg, n: int, train: bool) -> dict:
     return want
 
 
-def train_phase(dk, fk, cfg, tok, records):
+def train_phase(dk, fk, cfg, tok, records, what=None, keep_model=False):
     """Phases 5 and 5b: the full-width train step, batch 4, 448 px, bf16,
     task 1, on the route `cfg.dyhead.deform_impl` names, with the offset
     convs at a trained model's size (`honest_offsets`): 1 + 10 steps eagerly,
@@ -609,17 +642,20 @@ def train_phase(dk, fk, cfg, tok, records):
     launch counters, the median step, samples/s, a profiled step's busy
     share and kernels, the peak memory; the replayed step's deform launches
     by kernel name; captured against eager in bits; the frozen parameters
-    and the other tasks' rows bit-identical. -> the batch."""
+    and the other tasks' rows bit-identical. `what` names the run in the
+    log (the route by default). -> the batch, and with `keep_model` the
+    trained model too."""
     from lpi_tpu_torch.bench import deterministic, honest_offsets
     from lpi_tpu_torch.continual.grounding_learner import GroundingLearner
     from lpi_tpu_torch.data.grounding import synthetic_grounding_task
     from lpi_tpu_torch.graphs import WARMUP
 
     route = cfg.dyhead.deform_impl
+    label = what or route
     t = time.perf_counter()
     learner = GroundingLearner(cfg, generator=torch.Generator().manual_seed(0), device="cuda")
     honest_offsets(learner.model)
-    log(f"train {route}: learner built in {time.perf_counter() - t:.3f} s; offset convs "
+    log(f"train {label}: learner built in {time.perf_counter() - t:.3f} s; offset convs "
         f"scaled (kernel x30, bias[:18] ~ N(0, 1)) for realistic offsets")
     ds = synthetic_grounding_task(TRAIN_TASK, TRAIN_BATCH, cfg.image_size, tok,
                                   max_boxes=cfg.max_boxes)
@@ -656,29 +692,29 @@ def train_phase(dk, fk, cfg, tok, records):
             # makes no host call)
             calls = n_steps if mode == "eager" else WARMUP + 1
             want = expected_counts(dk, fk, cfg, calls, train=True)
-            log(f"train {route} ({mode}): launch counters {launches} over {calls} host calls "
+            log(f"train {label} ({mode}): launch counters {launches} over {calls} host calls "
                 f"of the step")
             if launches != want:
                 raise AssertionError(f"want {want} launches, got {launches}")
             med = statistics.median(times[1:])
-            log(f"train step {route} ({mode}) on {card_line()}: median {med:.3f} ms over "
+            log(f"train step {label} ({mode}) on {card_line()}: median {med:.3f} ms over "
                 f"{n_steps} steps after the first ({times[0]:.3f} ms), "
                 f"{1e3 * TRAIN_BATCH / med:.3f} samples/s, all {[round(x, 3) for x in times]}")
-            log(f"train {route} ({mode}): total loss first {losses[0]['total']:.6f}, last "
+            log(f"train {label} ({mode}): total loss first {losses[0]['total']:.6f}, last "
                 f"{losses[-1]['total']:.6f}; " + ", ".join(f"{k} {v:.6f}"
                                                           for k, v in losses[-1].items()))
             pools = {n: p.detach().clone() for n, p in learner.pools.items()}
-            kernels, stats = _profile(lambda: step(batch), f"train step ({route}, {mode})")
+            kernels, stats = _profile(lambda: step(batch), f"train step ({label}, {mode})")
             log_deform_kernels(kernels)
             per_step = check_replay_launches(dk, fk, cfg, kernels, True,
-                                             f"train {route} ({mode})")
+                                             f"train {label} ({mode})")
             if route == "fused":
                 record_fused_split(kernels, records, expected_counts(dk, fk, cfg, 1, train=True))
             runs[mode] = dict(losses=losses, pools=pools, med=med, peak=peak, stats=stats,
                               launches=launches, per_step=per_step)
             del step
-    same_bits(runs, f"train {route}")
-    mode_summary(runs, f"train step {route}", TRAIN_BATCH)
+    same_bits(runs, f"train {label}")
+    mode_summary(runs, f"train step {label}", TRAIN_BATCH)
     for name, n in runs["eager"]["launches"].items():
         if name in records and n:
             records[name]["launches"] = n
@@ -696,11 +732,12 @@ def train_phase(dk, fk, cfg, tok, records):
             raise AssertionError(f"frozen parameter {name} moved")
     if changed == 0:
         raise AssertionError(f"no pool row of task {TRAIN_TASK} moved")
-    log(f"train {route}: frozen parameters and the other tasks' pool rows bit-identical; "
+    log(f"train {label}: frozen parameters and the other tasks' pool rows bit-identical; "
         f"{changed} of {len(learner.pools)} pool leaves moved their task-{TRAIN_TASK} row")
+    model = learner.model if keep_model else None
     del before, learner, runs
     torch.cuda.empty_cache()
-    return batch
+    return (batch, model) if keep_model else batch
 
 
 def record_fused_split(kernels, records, calls):
@@ -729,34 +766,102 @@ def log_deform_kernels(kernels):
         log(f"profile fused deform kernel {name}: {ms:.3f} ms device, x{n}")
 
 
-def gradient_phase(cfg, batch):
-    """Phase 6 (and 5b's): one fp32 `_losses` at task 1 and the gradient of the task-1
-    rows of the pools, at batch 1, on the card and on the CPU (plain
-    versions), from the same seeded weights: each loss term and the
-    concatenated gradient within the repo's bar, relative Frobenius 1e-4.
-    (From trained weights with the scaled offset convs the fp32 gradient
-    moves by 1e-3 to 1e-2 between two summation orders, on the CPU alone;
-    `scripts/torch_grad_order.py` measures that.)"""
+def rel_frob(a, b) -> float:
+    """Relative Frobenius error of a against b."""
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def hold_leaves(ours, theirs, what, rel=1e-4):
+    """Each pool leaf's gradient on its own within relative Frobenius `rel`
+    (a concatenation lets the largest leaf hide a wrong small one). ->
+    the leaves over the bar, with their errors."""
+    errs = {n: rel_frob(ours[n], theirs[n]) for n in sorted(theirs)}
+    for n, e in errs.items():
+        log(f"fp32 card vs cpu {what} grad {n}: norm {np.linalg.norm(ours[n]):.3e}, "
+            f"rel frobenius {e:.3e} (bar {rel})")
+    return {n: e for n, e in errs.items() if not e <= rel}
+
+
+def _floating(out) -> bool:
+    return isinstance(out, torch.Tensor) and out.is_floating_point()
+
+
+def outputs_recorded(outputs):
+    """A forward hook for every module that appends each call's floating
+    tensor output to `outputs`."""
+    def record(module, args, out):
+        if _floating(out):
+            outputs.append(out.detach().clone())
+    return record
+
+
+def outputs_pinned(card_outputs):
+    """A forward hook for every module that hands each call the card's
+    output (`card_outputs`, in call order) in place of its own: its own
+    plus a constant, so that the gradient flowing back through it is its
+    own. Each module's backward then runs at the card's operating point, on
+    the card's side of every kink. -> (hook, each call's largest difference
+    relative to the card's largest value), the list filled as it runs."""
+    calls = iter(card_outputs)
+    worst = []
+
+    def pin(module, args, own):
+        if not _floating(own):
+            return None
+        card = next(calls).to(own.device)
+        worst.append(float((card - own).detach().abs().max() / max(card.abs().max(), 1e-30)))
+        return own + (card - own).detach()
+
+    return pin, worst
+
+
+def _grounding_grads(cfg32, one, device, hook=None):
+    """One fp32 `_losses` at task 1 and the gradient of the task-1 pool rows
+    from the seeded weights on `device`; `hook` is put on every module. ->
+    (losses, {leaf: gradient}), host values."""
     from lpi_tpu_torch.continual.grounding_learner import GroundingLearner
     from lpi_tpu_torch.continual.keys import exact_fp32
 
-    cfg32 = dataclasses.replace(cfg, dtype="float32", batch_size=1)
-    one = {k: v[:1] for k, v in batch.items()}
-    out = {}
-    for device in ("cuda", "cpu"):
-        learner = GroundingLearner(cfg32, generator=torch.Generator().manual_seed(0),
-                                   device=device)
-        t = time.perf_counter()
+    learner = GroundingLearner(cfg32, generator=torch.Generator().manual_seed(0), device=device)
+    handles = [m.register_forward_hook(hook) for m in learner.model.modules()
+               if hook is not None]
+    t = time.perf_counter()
+    try:
         with exact_fp32():
             total, metrics = learner._losses(learner.to_device(one), TRAIN_TASK)
             names = sorted(learner.pools)
             grads = torch.autograd.grad(total, [learner.pools[n] for n in names])
-        out[device] = ({k: v.item() for k, v in metrics.items()} | {"total": total.item()},
-                       {n: g[TRAIN_TASK].double().cpu().numpy() for n, g in zip(names, grads)})
-        log(f"fp32 losses + backward ({cfg.dyhead.deform_impl}) on {device}: "
-            f"{time.perf_counter() - t:.3f} s")
-        del learner, grads
-    (m_gpu, g_gpu), (m_cpu, g_cpu) = out["cuda"], out["cpu"]
+    finally:
+        for h in handles:
+            h.remove()
+    log(f"fp32 losses + backward ({cfg32.dyhead.deform_impl}) on {device}: "
+        f"{time.perf_counter() - t:.3f} s")
+    return ({k: v.item() for k, v in metrics.items()} | {"total": total.item()},
+            {n: g[TRAIN_TASK].double().cpu().numpy() for n, g in zip(names, grads)})
+
+
+def gradient_phase(cfg, batch):
+    """Phase 6 (and 5b's, 13d): one fp32 `_losses` at task 1 and the
+    gradient of the task-1 rows of the pools, at batch 1, on the card and
+    on the CPU (plain versions), from the same seeded weights: each loss
+    term, the concatenated gradient and each leaf's within the repo's bar,
+    relative Frobenius 1e-4. The network is piecewise linear in places (the
+    deformable convs' hat weights, DyReLU's max, the clips), and an
+    argument within a rounding of a kink lands on either side on the two
+    devices: a small leaf's gradient then moves by far more than a
+    rounding (`scripts/torch_grad_where.py` finds where). A leaf over the
+    bar is read again with every module's output on the CPU set to the
+    card's (its own plus a constant, so its gradients stay its own; each
+    within 1e-3 of the call's largest value): each backward then runs at
+    the card's operating point, and the leaf must hold. (From trained
+    weights with the scaled offset convs the fp32 gradient moves by 1e-3
+    to 1e-2 between two summation orders, on the CPU alone;
+    `scripts/torch_grad_order.py` measures that.)"""
+    cfg32 = dataclasses.replace(cfg, dtype="float32", batch_size=1)
+    one = {k: v[:1] for k, v in batch.items()}
+    outputs = []  # the card's module outputs, in call order
+    m_gpu, g_gpu = _grounding_grads(cfg32, one, "cuda", outputs_recorded(outputs))
+    m_cpu, g_cpu = _grounding_grads(cfg32, one, "cpu")
     if m_gpu["num_pos"] != m_cpu["num_pos"]:
         raise AssertionError(f"num_pos differs: {m_gpu['num_pos']} vs {m_cpu['num_pos']}")
     for k in sorted(m_cpu):
@@ -765,13 +870,27 @@ def gradient_phase(cfg, batch):
         if not np.isfinite(m_gpu[k]):
             raise AssertionError(f"fp32 {k} not finite on the card")
         assert_close(m_gpu[k], m_cpu[k], k, atol=np.inf)
-    for n in sorted(g_cpu):
-        a, b = g_gpu[n], g_cpu[n]
-        log(f"fp32 card vs cpu grad {n}[{TRAIN_TASK}]: rel frobenius "
-            f"{np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30):.3e}")
     assert_close(np.concatenate([g_gpu[n].ravel() for n in sorted(g_gpu)]),
                  np.concatenate([g_cpu[n].ravel() for n in sorted(g_cpu)]),
                  f"task-{TRAIN_TASK} pool gradient", atol=np.inf)
+    over = hold_leaves(g_gpu, g_cpu, f"[{TRAIN_TASK}]")
+    if not over:
+        return
+    log(f"fp32 card vs cpu: {sorted(over)} over the bar; the cpu again with every module's "
+        f"output set to the card's")
+    pin, worst = outputs_pinned(outputs)
+    del outputs
+    _, g_pin = _grounding_grads(cfg32, one, "cpu", pin)
+    log(f"fp32 card vs cpu module outputs: {len(worst)} calls, the largest difference "
+        f"{max(worst):.3e} of the card's largest value (bar 1e-3)")
+    if not max(worst) <= 1e-3:
+        raise AssertionError("the card's module outputs are not the cpu's: the re-read would "
+                             "take the cpu's gradient at another point")
+    still = hold_leaves({n: g_gpu[n] for n in over}, {n: g_pin[n] for n in over},
+                        f"[{TRAIN_TASK}] at the card's module outputs")
+    if still:
+        raise AssertionError(f"task-{TRAIN_TASK} pool gradient of {sorted(still)}: card and "
+                             f"cpu disagree")
 
 
 def detection_rows(result):
@@ -781,14 +900,14 @@ def detection_rows(result):
                   for e, s, b in zip(result["entities"], result["scores"], result["boxes"]))
 
 
-def predict_phase(dk, fk, model, keys, tok, cfg, image, caption, n_req=11):
+def predict_phase(dk, fk, model, keys, tok, cfg, image, caption, n_req=11, profile=True):
     """Phases 3 and 3b: 1 + `n_req` requests to a bf16 predictor of `model`
     on the card, eager and captured (the first captured request warms up
     and captures both graphs): the launch counters, one request profiled
-    with its deform launches by kernel name, the median latency of each
-    mode, equal task ids and equal detections. -> (the captured
-    predictor, the eager launch counters over `n_req` requests, the
-    replay's deform launches per request)."""
+    with its deform launches by kernel name (unless not `profile`), the
+    median latency of each mode, equal task ids and equal detections. ->
+    (the captured predictor, the eager launch counters over `n_req`
+    requests, the replay's deform launches per request, or None)."""
     from lpi_tpu_torch.graphs import WARMUP
     from lpi_tpu_torch.serve.predictor import GroundingPredictor
 
@@ -833,11 +952,13 @@ def predict_phase(dk, fk, model, keys, tok, cfg, image, caption, n_req=11):
         log(f"predict latency {route} ({mode}) on {card_line()}: median "
             f"{medians[mode]:.3f} ms over {n_req} requests after the first "
             f"({first:.3f} ms), all {[round(x, 3) for x in lat]}")
-        kernels, stats = _profile(lambda: predictor.predict(image, caption),
-                                  f"request ({route}, {mode})")
-        log_deform_kernels(kernels)
-        per_request = check_replay_launches(dk, fk, cfg, kernels, False,
-                                            f"predict {route} ({mode})")
+        per_request = None
+        if profile:
+            kernels, stats = _profile(lambda: predictor.predict(image, caption),
+                                      f"request ({route}, {mode})")
+            log_deform_kernels(kernels)
+            per_request = check_replay_launches(dk, fk, cfg, kernels, False,
+                                                f"predict {route} ({mode})")
         results[mode] = result
         if mode == "eager":
             eager_launches = launches
@@ -885,18 +1006,74 @@ def compare_heads(ours, theirs, where):
         raise AssertionError(f"task_id differs ({where})")
 
 
-def gate_phase(dk, fk):
-    """Phase 7: the quality gate's run with its own config ("pallas": the
-    window kernels at Cout = 16) and with the fused route (whose full-
-    parameter pretrain runs the d W path), each held to the gate's bars."""
-    from lpi_tpu_torch.bench import QUALITY_BARS, bench_quality_grounding, quality_ok
+def _gate(kind):
+    """One quality gate under deterministic algorithms, from counters at 0:
+    "pallas" or "fused" (the grounding gate on that route) or "retrieval".
+    -> (its values, seconds, the kernel launches it made)."""
+    from lpi_tpu_torch.bench import bench_quality_grounding, bench_quality_retrieval
+    from lpi_tpu_torch.ops import deform_window_kernel as dk
+    from lpi_tpu_torch.ops import fused_deform_kernel as fk
 
+    reset_counts(dk, fk)
+    t = time.perf_counter()
+    out = (bench_quality_retrieval("cuda") if kind == "retrieval"
+           else bench_quality_grounding(device="cuda", deform_impl=kind))
+    return out, time.perf_counter() - t, {k: v for k, v in launch_counts(dk, fk).items() if v}
+
+
+def _gate_child(kind, conn):
+    """`_gate` in a child process; its result, or the traceback of its
+    failure, goes back through `conn`."""
+    import traceback
+
+    try:
+        conn.send(_gate(kind))
+    except BaseException:
+        conn.send(traceback.format_exc())
+    finally:
+        conn.close()
+
+
+def gate_phase():
+    """Phases 7 and 10: the quality gates, each held to its bars. The
+    grounding gate with its own config ("pallas": the window kernels at
+    Cout = 16) runs here; the one on the fused route (whose full-parameter
+    pretrain runs the d W path) and the retrieval gate (no deform kernel)
+    run at the same time in two child processes on the same card. All three
+    are host-bound and measure no time but their own seconds, which the
+    sharing lengthens."""
+    import multiprocessing
+
+    from lpi_tpu_torch.bench import (QUALITY_BARS, RETRIEVAL_BARS, quality_ok,
+                                     retrieval_quality_ok)
+
+    ctx = multiprocessing.get_context("spawn")
+    children = {}
+    try:
+        for kind in ("fused", "retrieval"):
+            ours, theirs = ctx.Pipe(duplex=False)
+            proc = ctx.Process(target=_gate_child, args=(kind, theirs), daemon=True)
+            proc.start()
+            theirs.close()
+            children[kind] = (proc, ours)
+        results = {"pallas": _gate("pallas")}
+        for kind, (proc, ours) in children.items():
+            try:
+                results[kind] = ours.recv()
+            except EOFError:
+                raise AssertionError(f"gate {kind}: the child process ended with "
+                                     f"code {proc.exitcode} and no result") from None
+            proc.join()
+            if isinstance(results[kind], str):
+                raise AssertionError(f"gate {kind} failed in its child process:\n"
+                                     f"{results[kind]}")
+    finally:
+        for proc, _ in children.values():
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
     for route in ("pallas", "fused"):
-        reset_counts(dk, fk)
-        t = time.perf_counter()
-        out = bench_quality_grounding(device="cuda", deform_impl=route)
-        secs = time.perf_counter() - t
-        launches = {k: v for k, v in launch_counts(dk, fk).items() if v}
+        out, secs, launches = results[route]
         log(f"gate {route} on {card_line()}: P@1 {out['grounding_p1']}, P@5 "
             f"{out['grounding_p5']}, task-ID accuracy {out['grounding_task_id_acc']}, "
             f"forgetting {out['grounding_forgetting']} in {secs:.3f} s; launches {launches}")
@@ -909,6 +1086,14 @@ def gate_phase(dk, fk):
             raise AssertionError(f"gate {route}: launches {launches}, want {sorted(used)}")
         if not quality_ok(out):
             raise AssertionError(f"gate {route}: {out} misses the bars {QUALITY_BARS}")
+    out, secs, launches = results["retrieval"]
+    log(f"retrieval gate on {card_line()} in {secs:.3f} s: "
+        + ", ".join(f"{k} {v} (JAX package on a TPU: {RETRIEVAL_GATE_TPU[k]})"
+                    for k, v in out.items()))
+    if launches:
+        raise AssertionError(f"retrieval gate launched deform kernels: {launches}")
+    if not retrieval_quality_ok(out):
+        raise AssertionError(f"retrieval gate: {out} misses the bars {RETRIEVAL_BARS}")
 
 
 def _launched_once(fn, *args):
@@ -1093,38 +1278,50 @@ def retrieval_step_flops(cfg) -> int:
     and layer the attention 4 S^2 D. Elementwise ops are not counted."""
     c, B = cfg.clip, cfg.batch_size
     patches = (c.image_resolution // c.patch_size) ** 2
+    # "lpi" and "sprompts" add their prompt tokens; "l2p" overwrites tokens
+    added = cfg.lpi.prompt_length if cfg.lpi.prompt_type in ("lpi", "sprompts") else 0
     linear = attn = 0
-    for S, D, L in ((patches + 1 + cfg.lpi.prompt_length, c.vision_width, c.vision_layers),
+    for S, D, L in ((patches + 1 + added, c.vision_width, c.vision_layers),
                     (c.context_length, c.text_width, c.text_layers)):
         linear += L * B * S * 24 * D * D
         attn += L * B * 4 * S * S * D
     stem = B * patches * 2 * 3 * c.patch_size ** 2 * c.vision_width
+    if cfg.lpi.prompt_type == "clip":  # its loss reads no pool leaf: no backward
+        return linear + attn + stem
     return 2 * linear + 3 * attn + stem
 
 
-def retrieval_train_phase(dk, fk):
-    """Phase 9: the full-width continual-retrieval step (SliNet on
+def retrieval_train_phase(dk, fk, cfg=None, steps=RETRIEVAL_STEPS, what="retrieval"):
+    """Phase 9 (and 13a): the full-width continual-retrieval step (SliNet on
     `RetrievalConfig()`: CLIP ViT-B/16 at 224 px, 213 vision tokens, LPI
-    prompts; batch 64, bf16) at task 1 on the bench's inputs, 1 + 20 steps
-    of `train_session`'s step: losses finite, the current slice moved,
-    every other slice and every tower parameter bit-equal to its start, no
-    deform kernel launched; the median step, samples/s, peak memory, one
-    profiled step; then `cluster_task` on two small sessions and one
-    `evaluate` at full width on a 2-task `synthetic_eval` set."""
+    prompts; batch 64, bf16; or `cfg`) at task 1 on the bench's inputs,
+    1 + `steps` steps of `train_session`'s step eagerly and 1 + `steps`
+    captured from the same start: losses finite with the prompt type's
+    keys, captured against eager in bits, the current slice of every pool
+    leaf moved, every other slice and every tower parameter bit-equal to
+    its start, no deform kernel launched; the median step, samples/s, peak
+    memory, one profiled step; then `cluster_task` on two small sessions
+    and one `evaluate` at full width on a 2-task `synthetic_eval` set (for
+    L2P, which has no evaluation, the named error)."""
     from lpi_tpu_torch.bench import retrieval_inputs
     from lpi_tpu_torch.config import RetrievalConfig
     from lpi_tpu_torch.continual.learner import RetrievalLearner
     from lpi_tpu_torch.data.retrieval import synthetic_eval, synthetic_session
     from lpi_tpu_torch.data.tokenizer import ClipTokenizer
+    from lpi_tpu_torch.models.clip.slinet import L2P_EVAL_GAP
 
     from lpi_tpu_torch.bench import deterministic
 
-    cfg = RetrievalConfig()
+    cfg = RetrievalConfig() if cfg is None else cfg
+    prompt_type = cfg.lpi.prompt_type
+    want_keys = {"total", "base_loss"} | ({"alignment_loss", "task_loss"} if prompt_type == "lpi"
+                                         else set())
     t = time.perf_counter()
     learner = RetrievalLearner(cfg, generator=torch.Generator().manual_seed(0), device="cuda")
-    log(f"retrieval: learner built in {time.perf_counter() - t:.3f} s; "
+    log(f"{what}: learner built in {time.perf_counter() - t:.3f} s; "
         f"{sum(p.numel() for p in learner.frozen.values())} frozen and "
-        f"{sum(p.numel() for p in learner.pools.values())} pool parameters")
+        f"{sum(p.numel() for p in learner.pools.values())} pool parameters in "
+        f"{sorted(learner.pools)}")
     batch = learner.to_device(retrieval_inputs(cfg))
     before = {n: p.detach().clone() for n, p in learner.model.named_parameters()}
     runs = {}
@@ -1139,32 +1336,35 @@ def retrieval_train_phase(dk, fk):
             torch.cuda.reset_peak_memory_stats()
             reset_counts(dk, fk)
             times, losses = [], []
-            for i in range(1 + RETRIEVAL_STEPS):
+            for i in range(1 + steps):
                 t = time.perf_counter()
                 metrics = step(batch)
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t) * 1e3)
                 losses.append({k: v.item() for k, v in metrics.items()})
+                if set(losses[-1]) != want_keys:
+                    raise AssertionError(f"{what} step {i} ({mode}): losses {sorted(losses[-1])}"
+                                         f", want {sorted(want_keys)}")
                 for k, v in losses[-1].items():
                     if not np.isfinite(v):
-                        raise AssertionError(f"retrieval step {i} ({mode}): {k} = {v}")
+                        raise AssertionError(f"{what} step {i} ({mode}): {k} = {v}")
             peak = torch.cuda.max_memory_allocated()
             launches = {k: v for k, v in launch_counts(dk, fk).items() if v}
             if launches:
-                raise AssertionError(f"retrieval step launched deform kernels: {launches}")
+                raise AssertionError(f"{what} step launched deform kernels: {launches}")
             med = statistics.median(times[1:])
-            log(f"retrieval step ({mode}) on {card_line()}: median {med:.3f} ms over "
-                f"{RETRIEVAL_STEPS} steps after the first ({times[0]:.3f} ms), "
+            log(f"{what} step ({mode}) on {card_line()}: median {med:.3f} ms over "
+                f"{steps} steps after the first ({times[0]:.3f} ms), "
                 f"{1e3 * cfg.batch_size / med:.3f} samples/s, all {[round(x, 3) for x in times]}")
-            log(f"retrieval step ({mode}): " + ", ".join(f"{k} {v:.6f}"
-                                                        for k, v in losses[-1].items()))
+            log(f"{what} step ({mode}): " + ", ".join(f"{k} {v:.6f}"
+                                                     for k, v in losses[-1].items()))
             pools = {n: p.detach().clone() for n, p in learner.pools.items()}
-            kernels, stats = _profile(lambda: step(batch), f"retrieval train step ({mode})")
+            kernels, stats = _profile(lambda: step(batch), f"{what} train step ({mode})")
             runs[mode] = dict(losses=losses, pools=pools, med=med, peak=peak, stats=stats,
                               kernels=kernels)
             del step
-    same_bits(runs, "retrieval step")
-    mode_summary(runs, "retrieval step", cfg.batch_size)
+    same_bits(runs, f"{what} step")
+    mode_summary(runs, f"{what} step", cfg.batch_size)
     moved = 0
     for name, p in learner.model.named_parameters():
         old = before[name]
@@ -1178,7 +1378,7 @@ def retrieval_train_phase(dk, fk):
     if moved != len(learner.pools):
         raise AssertionError(f"{moved} of {len(learner.pools)} pool leaves moved their "
                              f"task-{TRAIN_TASK} slice")
-    log(f"retrieval step: every tower parameter and the other tasks' slices bit-identical; "
+    log(f"{what} step: every tower parameter and the other tasks' slices bit-identical; "
         f"all {moved} pool leaves moved their task-{TRAIN_TASK} slice")
     del before
     kernels, med = runs["captured"]["kernels"], runs["captured"]["med"]
@@ -1194,7 +1394,7 @@ def retrieval_train_phase(dk, fk):
     floor = flops / BF16_FLOPS * 1e3
     busy = sum(ms for _, ms in groups.values())
     gemm = groups.get("gemm", (0, 0.0))[1]
-    log(f"retrieval step: {flops / 1e12:.3f} TFLOP of tower products, {floor:.3f} ms at the "
+    log(f"{what} step: {flops / 1e12:.3f} TFLOP of tower products, {floor:.3f} ms at the "
         f"bf16 peak: {100 * floor / med:.1f}% of the median step"
         + (f", {100 * floor / busy:.1f}% of the profiled device time, "
            f"{100 * floor / gemm:.1f}% of its products' time" if gemm else ""))
@@ -1204,14 +1404,29 @@ def retrieval_train_phase(dk, fk):
     res = cfg.clip.image_resolution
     for task in range(2):
         learner.cluster_task(synthetic_session(task, 16, res, tok, cfg.clip.n_ctx))
-    out = learner.evaluate(synthetic_eval(2, 8, 1, res, tok, cfg.clip.n_ctx), num_tasks=2)
+    eval_set = synthetic_eval(2, 8, 1, res, tok, cfg.clip.n_ctx)
+    if prompt_type == "l2p":
+        try:
+            learner.evaluate(eval_set, num_tasks=2)
+        except NotImplementedError as e:
+            if str(e) != L2P_EVAL_GAP:
+                raise
+            log(f"{what} evaluate: raises the named error, as the reference stops there: {e}")
+        else:
+            raise AssertionError("L2P evaluate ran: the reference has no such path")
+        del learner, batch, runs
+        torch.cuda.empty_cache()
+        return
+    out = learner.evaluate(eval_set, num_tasks=2)
     summary = {k: float(v) for k, v in out["summary"].items()}
     acc = out["task_id_accuracy"]
     if not (set(out["i2t"]) == set(out["t2i"]) == {0, 1}
             and all(np.isfinite(v) and 0 <= v <= 100 for v in summary.values())
             and all(0 <= v <= 1 for v in acc.values())):
-        raise AssertionError(f"bad retrieval evaluation: {out}")
-    log(f"retrieval evaluate (random weights, 2 tasks, 16 images, 16 captions): "
+        raise AssertionError(f"bad {what} evaluation: {out}")
+    if prompt_type == "clip" and acc != {"visual": 0.5, "textual": 0.5}:
+        raise AssertionError(f"zero-shot CLIP takes task 0 for every sample: task-ID {acc}")
+    log(f"{what} evaluate (random weights, 2 tasks, 16 images, 16 captions): "
         f"{time.perf_counter() - t:.3f} s with the two cluster_task calls; txt R@1 "
         f"{summary['txt_r1']:.1f}, img R@1 {summary['img_r1']:.1f}, task-ID {acc}")
     del learner, batch, runs
@@ -1235,12 +1450,14 @@ def grounding_bench_phase():
     torch.cuda.empty_cache()
 
 
-def retrieval_gradient_phase():
-    """Phase 9b: one fp32 `_losses` at task 1 and the gradient of the
-    task-1 slices of the pools, at full width and 2 layers a tower, batch
-    8 of the bench's inputs, on the card and on the CPU from the same
-    seeded weights, TF32 off: each loss term and the concatenated gradient
-    within relative Frobenius 1e-4."""
+def retrieval_gradient_phase(lpi=None, what="retrieval"):
+    """Phase 9b (and 13b): one fp32 `_losses` at task 1 and the gradient of
+    the pools (the task-1 slices; every slice of L2P's shared pool, where
+    the vote picks the rows), at full width and 2 layers a tower, batch 8
+    of the bench's inputs, on the card and on the CPU from the same seeded
+    weights, TF32 off: each loss term, the concatenated gradient and each
+    leaf's within relative Frobenius 1e-4; L2P's chosen pool entries equal. `lpi`
+    replaces the LPI prompt config."""
     from lpi_tpu_torch.bench import retrieval_inputs
     from lpi_tpu_torch.config import RetrievalConfig
     from lpi_tpu_torch.continual.keys import exact_fp32
@@ -1248,54 +1465,49 @@ def retrieval_gradient_phase():
 
     base = RetrievalConfig()
     cfg = dataclasses.replace(base, dtype="float32", batch_size=8, clip=dataclasses.replace(
-        base.clip, vision_layers=2, text_layers=2))
+        base.clip, vision_layers=2, text_layers=2), lpi=lpi or base.lpi)
+    l2p = cfg.lpi.prompt_type == "l2p"
     batch = retrieval_inputs(cfg)
-    out = {}
+    out, chosen = {}, {}
     for device in ("cuda", "cpu"):
         learner = RetrievalLearner(cfg, generator=torch.Generator().manual_seed(0),
                                    device=device)
         t = time.perf_counter()
         with exact_fp32():
-            total, losses = learner._losses(learner.to_device(batch), TRAIN_TASK)
+            b = learner.to_device(batch)
+            total, losses = learner._losses(b, TRAIN_TASK)
             names = sorted(learner.pools)
             grads = torch.autograd.grad(total, [learner.pools[n] for n in names],
                                         allow_unused=True)
+            if l2p:
+                model = learner.model
+                with torch.no_grad():
+                    chosen[device] = model.prompts(model.clip.visual.embed(b["images"]))[
+                        "prompt_idx"].cpu()
         out[device] = ({k: v.item() for k, v in losses.items()} | {"total": total.item()},
-                       {n: g[TRAIN_TASK].double().cpu().numpy()
+                       {n: (g if l2p else g[TRAIN_TASK]).double().cpu().numpy()
                         for n, g in zip(names, grads) if g is not None})
-        log(f"retrieval fp32 losses + backward on {device}: {time.perf_counter() - t:.3f} s")
+        log(f"{what} fp32 losses + backward on {device}: {time.perf_counter() - t:.3f} s")
         del learner, grads
+    if l2p:
+        if not torch.equal(chosen["cuda"], chosen["cpu"]):
+            raise AssertionError(f"{what}: L2P chose {chosen['cuda'][0].tolist()} on the card, "
+                                 f"{chosen['cpu'][0].tolist()} on the CPU")
+        log(f"{what}: L2P's chosen pool entries {chosen['cuda'][0].tolist()} equal on the card "
+            f"and the CPU")
     (m_gpu, g_gpu), (m_cpu, g_cpu) = out["cuda"], out["cpu"]
     for k in sorted(m_cpu):
         if not np.isfinite(m_gpu[k]):
-            raise AssertionError(f"retrieval fp32 {k} not finite on the card")
-        assert_close(m_gpu[k], m_cpu[k], f"retrieval {k}", atol=np.inf)
-    if sorted(g_gpu) != sorted(g_cpu):
+            raise AssertionError(f"{what} fp32 {k} not finite on the card")
+        assert_close(m_gpu[k], m_cpu[k], f"{what} {k}", atol=np.inf)
+    if sorted(g_gpu) != sorted(g_cpu) or not g_gpu:
         raise AssertionError(f"pool gradients present: {sorted(g_gpu)} vs {sorted(g_cpu)}")
     assert_close(np.concatenate([g_gpu[n].ravel() for n in sorted(g_gpu)]),
                  np.concatenate([g_cpu[n].ravel() for n in sorted(g_cpu)]),
-                 f"retrieval task-{TRAIN_TASK} pool gradient", atol=np.inf)
-
-
-def retrieval_gate_phase(dk, fk):
-    """Phase 10: the retrieval quality gate (`bench_quality_retrieval`) on
-    the card under deterministic algorithms, held to its bars; no deform
-    kernel launched."""
-    from lpi_tpu_torch.bench import RETRIEVAL_BARS, bench_quality_retrieval, \
-        retrieval_quality_ok
-
-    reset_counts(dk, fk)
-    t = time.perf_counter()
-    out = bench_quality_retrieval("cuda")
-    secs = time.perf_counter() - t
-    launches = {k: v for k, v in launch_counts(dk, fk).items() if v}
-    log(f"retrieval gate on {card_line()} in {secs:.3f} s: "
-        + ", ".join(f"{k} {v} (JAX package on a TPU: {RETRIEVAL_GATE_TPU[k]})"
-                    for k, v in out.items()))
-    if launches:
-        raise AssertionError(f"retrieval gate launched deform kernels: {launches}")
-    if not retrieval_quality_ok(out):
-        raise AssertionError(f"retrieval gate: {out} misses the bars {RETRIEVAL_BARS}")
+                 f"{what} task-{TRAIN_TASK} pool gradient of {sorted(g_gpu)}", atol=np.inf)
+    over = hold_leaves(g_gpu, g_cpu, what)
+    if over:
+        raise AssertionError(f"{what} pool gradient of {sorted(over)}: card and cpu disagree")
 
 
 # ---- phase 12: the command line, its checkpoints and `restore` ---------------
@@ -1679,6 +1891,140 @@ def cli_phase(dk, fk, gen, records):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---- phase 13: the baseline prompt types --------------------------------------
+BASELINE_STEPS = 10
+
+
+def baseline_file(kind) -> str:
+    """configs/baselines/{kind}.json of this checkout."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "baselines",
+                        f"{kind}.json")
+
+
+def baseline_config(kind, section, **overrides):
+    """The default config's `section` ("retrieval" or "grounding") with
+    `configs/baselines/{kind}.json` over it (zero-shot CLIP, which has no
+    file: `prompt_type="clip"`), and `overrides`."""
+    from lpi_tpu_torch.config import load_config
+
+    if kind == "clip":
+        return getattr(load_config(None, {section: {"lpi": {"prompt_type": "clip"},
+                                                    **overrides}}), section)
+    return getattr(load_config(baseline_file(kind), {section: overrides}), section)
+
+
+def baseline_request(dk, fk, model, cfg, tok):
+    """13c's request: one to a predictor of the trained `model` eagerly and
+    one captured, after a first (`predict_phase`), with seeded task keys:
+    equal task ids and detections, the forward's window launches."""
+    from lpi_tpu_torch.continual.keys import TaskKeys
+
+    rng = np.random.RandomState(13)
+    feat_dim = cfg.dyhead.channels * 4 * 4  # P7 at 448 px
+    centers = (rng.randn(cfg.total_tasks, cfg.num_key_clusters, feat_dim)
+               / np.sqrt(feat_dim)).astype(np.float32)
+    keys = TaskKeys(torch.from_numpy(centers), torch.ones(cfg.total_tasks, dtype=torch.bool))
+    image = rng.randint(0, 256, size=(480, 640, 3)).astype(np.uint8)
+    predict_phase(dk, fk, model, keys, tok, cfg, image, CLI_CAPTION, n_req=1, profile=False)
+
+
+def cli_baseline_phase(dk, fk, work):
+    """13e: `train-grounding --config configs/baselines/maple.json
+    --synthetic --tasks 2 --epochs 1` at `GroundingConfig()` with MaPLe
+    (448 px, bf16, batch 16, "pallas"): finite losses, the four window
+    kernels launched; then `eval-all --grounding` from its checkpoints in a
+    learner seeded 99: the head outputs of every eval batch, P@1/5/10 and
+    the task-ID accuracy equal to the training run's in bits."""
+    maple = baseline_file("maple")
+    ck, res_dir = os.path.join(work, "ckpt_maple"), os.path.join(work, "res_maple")
+    reset_counts(dk, fk)
+    with grounding_head_outputs() as trained:
+        (path, learner), _, _ = run_cli("train-grounding", "--config", maple, "--synthetic",
+                                        "--tasks", "2", "--epochs", "1", "--output-dir",
+                                        res_dir, "--checkpoint-dir", ck)
+    launches = {k: v for k, v in launch_counts(dk, fk).items() if v}
+    log(f"cli train-grounding (maple): launch counters {launches}; pools "
+        f"{sorted(learner.pools)}")
+    if set(launches) != set(CLI_WINDOW):
+        raise AssertionError(f"train-grounding (maple) launched {launches}")
+    if set(learner.pools) != {"prompts.textual", "prompts.proj_kernel", "prompts.proj_bias"}:
+        raise AssertionError(f"train-grounding (maple) trained {sorted(learner.pools)}")
+    batch = learner.cfg.batch_size
+    del learner
+    torch.cuda.empty_cache()
+    for session, steps, total in train_metrics(res_dir, batch):
+        log(f"cli train-grounding (maple) task {session} on {card_line()}: {steps:.3f} "
+            f"steps/s (batch {batch}), total loss {total:.6f}")
+    with open(path) as f:
+        results = json.load(f)
+    with open(maple) as f:
+        section = json.load(f)["grounding"]
+    seeded = os.path.join(work, "maple99.json")
+    with open(seeded, "w") as f:
+        json.dump({"grounding": {**section, "seed": 99}}, f)
+    with grounding_head_outputs() as again:
+        out, _, _ = run_cli("eval-all", "--grounding", "--synthetic", "--checkpoint-dir", ck,
+                            "--config", seeded)
+    if not trained or [d for d, _ in again] != [d for d, _ in trained]:
+        raise AssertionError(f"eval-all --grounding (maple): the head outputs of its "
+                             f"{len(again)} eval batches differ from the training run's")
+    for s in (0, 1):
+        got, rec = as_json(out[s]), results[str(s)]
+        if (got["overall"], got["per_task"], got["task_id_accuracy"]) != (
+                rec["overall"], rec["per_task"], rec["task_id_accuracy"]):
+            raise AssertionError(f"eval-all --grounding (maple) task {s}: {got}, trained {rec}")
+    log(f"cli eval-all --grounding (maple, a learner seeded 99): the head outputs of its "
+        f"{len(again)} eval batches, P@1/5/10 and task-ID of both tasks equal the training "
+        f"run's in bits")
+
+
+def baseline_phase(dk, fk, tok):
+    """Phase 13: the baseline prompt types at full width, seeded weights,
+    under deterministic algorithms. 13a: the retrieval step with S-Prompts,
+    L2P and zero-shot CLIP (`retrieval_train_phase`, 1 + 10 steps a mode);
+    13b: their fp32 loss and pool gradient, card vs CPU, S-Prompts and L2P;
+    13c: the grounding step ("pallas", batch 4, `honest_offsets`) with
+    S-Prompts and with MaPLe (`train_phase`), then one request each,
+    eager and captured; 13d: their fp32 loss and pool gradient at batch 1,
+    card vs CPU (`gradient_phase`); 13e: the command line with MaPLe
+    (`cli_baseline_phase`)."""
+    import shutil
+    import tempfile
+
+    from lpi_tpu_torch.bench import deterministic
+
+    with deterministic():
+        for kind in ("sprompts", "l2p", "clip"):
+            t = time.perf_counter()
+            retrieval_train_phase(dk, fk, baseline_config(kind, "retrieval"), BASELINE_STEPS,
+                                  f"retrieval {kind}")
+            log(f"phase 13a ({kind}): {time.perf_counter() - t:.3f} s")
+        for kind in ("sprompts", "l2p"):
+            t = time.perf_counter()
+            retrieval_gradient_phase(baseline_config(kind, "retrieval").lpi,
+                                     f"retrieval {kind}")
+            log(f"phase 13b ({kind}): {time.perf_counter() - t:.3f} s")
+        for kind in ("sprompts", "maple"):
+            t = time.perf_counter()
+            cfg = baseline_config(kind, "grounding", batch_size=TRAIN_BATCH)
+            batch, model = train_phase(dk, fk, cfg, tok, {}, f"pallas {kind}", keep_model=True)
+            baseline_request(dk, fk, model, cfg, tok)
+            del model
+            torch.cuda.empty_cache()
+            log(f"phase 13c ({kind}): {time.perf_counter() - t:.3f} s")
+            t = time.perf_counter()
+            log(f"phase 13d ({kind}): fp32 losses and pool gradient, card vs cpu")
+            gradient_phase(cfg, batch)
+            log(f"phase 13d ({kind}): {time.perf_counter() - t:.3f} s")
+        work = tempfile.mkdtemp(prefix="chip_smoke_baselines_")
+        try:
+            t = time.perf_counter()
+            cli_baseline_phase(dk, fk, work)
+            log(f"phase 13e: {time.perf_counter() - t:.3f} s")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1773,26 +2119,23 @@ def main() -> int:
         gradient_phase(c, batch)
         log(f"phases 5-6 ({c.dyhead.deform_impl}): {time.perf_counter() - t:.3f} s")
 
-    # ---- the quality gate ------------------------------------------------
+    # ---- the quality gates, phases 7 and 10 at once -----------------------
     t = time.perf_counter()
-    gate_phase(dk, fk)
-    log(f"phase 7: {time.perf_counter() - t:.3f} s")
+    gate_phase()
+    log(f"phases 7 and 10: {time.perf_counter() - t:.3f} s")
 
     # ---- rows 3 and 4 and their path, the deform-window microbenchmark ---
     t = time.perf_counter()
     microbenchmark_phase(dk, fk, gen, records)
     log(f"phase 8: {time.perf_counter() - t:.3f} s")
 
-    # ---- continual retrieval: the SliNet step, its gradient, its gate ----
+    # ---- continual retrieval: the SliNet step and its gradient -----------
     t = time.perf_counter()
     retrieval_train_phase(dk, fk)
     log(f"phase 9: {time.perf_counter() - t:.3f} s")
     t = time.perf_counter()
     retrieval_gradient_phase()
     log(f"phase 9b: {time.perf_counter() - t:.3f} s")
-    t = time.perf_counter()
-    retrieval_gate_phase(dk, fk)
-    log(f"phase 10: {time.perf_counter() - t:.3f} s")
 
     # ---- the grounding bench line ----------------------------------------
     t = time.perf_counter()
@@ -1803,6 +2146,11 @@ def main() -> int:
     t = time.perf_counter()
     cli_phase(dk, fk, gen, records)
     log(f"phase 12: {time.perf_counter() - t:.3f} s")
+
+    # ---- the baseline prompt types ---------------------------------------
+    t = time.perf_counter()
+    baseline_phase(dk, fk, tok)
+    log(f"phase 13: {time.perf_counter() - t:.3f} s")
 
     for rec in records.values():
         kinds = rec.pop("bound_kinds")

@@ -5,21 +5,27 @@
   cosine learning rate trains ONLY the current task's slices of the prompt
   and context pools: the frozen towers have requires_grad=False, so
   autograd computes gradients for the pools alone.
-* Loss: batch-global InfoNCE + 0.1 x cross-modal prompt alignment + 0.1 x
-  the inter-task loss (masked to tasks 0..task; 0 at task 0).
+* Loss: batch-global InfoNCE; with `prompt_type="lpi"` also 0.1 x
+  cross-modal prompt alignment + 0.1 x the inter-task loss (masked to
+  tasks 0..task; 0 at task 0), each where its flag is on.
 * After each session: k-means task keys per modality over the session's
   frozen promptless features, in exact fp32.
 * Evaluation: each image's and caption's task inferred from its frozen
   features and the keys, the prompts gathered per sample, the features
-  ranked on the device, R@1/5/10 per task and the task-ID accuracy.
+  ranked on the device, R@1/5/10 per task and the task-ID accuracy. The
+  zero-shot "clip" type ranks the frozen features and takes task 0 for
+  every sample; "l2p" has no evaluation (`SliNet.encode_image_tasks`).
 
 The masked step is optax's `add_decayed_weights(wd)` then `sgd(lr,
 momentum)` written out, with a one-hot over the leading task axis on the
 gradients and on the updates: g <- g * onehot; u = g + wd p over every
 slice; trace <- u + 0.9 trace; p <- p - lr (trace * onehot). `torch.optim.SGD`
-would move the other tasks' slices through the decay. `ctx_pool`, which
-the "lpi" forward never reads, gets no gradient (None, taken as zero), and
-its current slice still decays. The task id and the learning rate are
+would move the other tasks' slices through the decay. A leaf that the
+forward never reads gets no gradient (None, taken as zero), and its
+current slice still decays: `ctx_pool` under "lpi", "sprompts" and "clip"
+(L2P's text reads it), L2P's `prompt_key` (its similarity only picks
+indices). L2P's shared pool has one row per session, so session t moves
+row t of it alone. The task id and the learning rate are
 device tensors, so a step neither syncs with the host nor depends on their
 values for its shape of work.
 
@@ -105,15 +111,16 @@ class RetrievalLearner:
 
     # ------------------------------------------------------------------
     def _losses(self, batch: Mapping[str, torch.Tensor], task_id):
-        """-> (total, {base_loss, alignment_loss, task_loss}), each weighted.
-        `task_id` is an int or a 0-d integer tensor on the device."""
+        """-> (total, {base_loss, alignment_loss, task_loss}), each weighted;
+        the last two only for "lpi" prompts. `task_id` is an int or a 0-d
+        integer tensor on the device."""
         lpi = self.cfg.lpi
         img, txt, vis_p, txt_p, scale = self.model(batch["images"], batch["token_ids"], task_id)
         losses = {"base_loss": clip_loss(scale * img @ txt.T)}
-        if lpi.layer_alignment:
+        if lpi.prompt_type == "lpi" and lpi.layer_alignment:
             losses["alignment_loss"] = lpi.alignment_weight * alignment_loss(
                 vis_p, txt_p, lpi.alignment_temperature)
-        if lpi.task_alignment:
+        if lpi.prompt_type == "lpi" and lpi.task_alignment:
             vis_all, txt_all = self.model.all_task_prompts()
             T = vis_all.shape[0]
             losses["task_loss"] = lpi.task_loss_weight * task_prompt_loss_masked(
@@ -135,7 +142,9 @@ class RetrievalLearner:
         cfg = self.cfg
         params = list(self.pools.values())
         total, losses = self._losses(batch, task_id)
-        grads = torch.autograd.grad(total, params, allow_unused=True)
+        # zero-shot CLIP's loss reads no pool leaf: no gradient at all
+        grads = (torch.autograd.grad(total, params, allow_unused=True) if total.requires_grad
+                 else [None] * len(params))
         with torch.no_grad():
             for p, g, mask, tr in zip(params, grads, self._masks(task_id), trace):
                 g = torch.zeros_like(p) if g is None else g * mask
@@ -271,14 +280,21 @@ class RetrievalLearner:
     def evaluate(self, eval_set: RetrievalEvalSet, num_tasks: int) -> dict:
         """Cumulative retrieval evaluation with task-ID inference: {'i2t',
         't2i': {task: [R@1, R@5, R@10]}, 'summary', 'task_id_accuracy':
-        {'visual', 'textual'}}."""
+        {'visual', 'textual'}}. The zero-shot "clip" type ranks the frozen
+        features, every sample at task 0."""
         cfg = self.cfg
+        zero_shot = cfg.lpi.prompt_type == "clip"
 
         def encode(batches, dtype, extract, keys, encode_tasks):
             feats, sel = [], []
             for x, n in batches:
                 x = torch.as_tensor(x).to(self.device, dtype)
-                ids = infer_task_ids(extract(x), keys)
+                frozen = extract(x)
+                if zero_shot:
+                    feats.append(frozen[:n])
+                    sel.append(torch.zeros(n, dtype=torch.long, device=self.device))
+                    continue
+                ids = infer_task_ids(frozen, keys)
                 with torch.no_grad():
                     feats.append(encode_tasks(x, ids)[:n])
                 sel.append(ids[:n])

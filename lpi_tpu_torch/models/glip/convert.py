@@ -17,7 +17,10 @@ prefix) already holds PyTorch layouts, so the conversion renames:
   conv_up, conv_same, conv_down), and the head's own convs and scalars;
 * `rpn[.head].tunable_linear.weight` -> `tunable_linear.weight`;
 * the LPI pools, when present (`prompts.{t}.dim_*`,
-  `interactModuleList.{t}.*`), stacked over the task axis.
+  `interactModuleList.{t}.*`), stacked over the task axis. The baseline
+  pools (MaPLe's and S-Prompts' `prompts.{t}.*`) are not mapped, as the
+  JAX converter maps none of them: their keys come back as unmapped, and a
+  baseline model keeps its seeded pool.
 
 Checkpoint keys that map nowhere are reported, as the JAX converter reports
 them; `merge_into_params` overlays the converted entries on a model's

@@ -9,8 +9,11 @@
 The train `forward` (one task's prompts), `grounding_aux_losses`, the eval
 `forward_tasks` and `extract_features` are ported, with both FPN variants
 (plain and GroupNorm) and both deformable-conv routes of the head
-(`deform_impl` "pallas" and "fused"); `forward_knowledge` and the MaPLe /
-S-Prompts pools are not yet.
+(`deform_impl` "pallas" and "fused"); `forward_knowledge` is not yet. The
+pool follows `prompt_type` in the JAX package's order: "lpi" or "linear"
+the CP-factorised pool; "maple" (or `interact_type="maple"`) MaPLe's
+coupled prompts, which the encoder writes over the tokens it would add to;
+"sprompts" dense prompts of `prompt_depth` layers.
 """
 
 from __future__ import annotations
@@ -26,8 +29,8 @@ from lpi_tpu_torch.models.glip.anchors import concat_anchors
 from lpi_tpu_torch.models.glip.fpn import FPN
 from lpi_tpu_torch.models.glip.fused import FusedDualEncoder
 from lpi_tpu_torch.models.glip.vldyhead import TunableLinear, VLDyHead
-from lpi_tpu_torch.models.layers import lecun_normal_, normal_, truncated_normal_
-from lpi_tpu_torch.prompts.pools import DecomposedPromptPool
+from lpi_tpu_torch.models.layers import lecun_normal_, normal_, truncated_normal_, uniform_
+from lpi_tpu_torch.prompts.pools import DecomposedPromptPool, MaPLePromptPool, NormalPromptPool
 
 
 def model_dtype(cfg: GroundingConfig) -> torch.dtype:
@@ -39,9 +42,17 @@ class GroundedVLModel(nn.Module):
         super().__init__()
         c = self.cfg = cfg
         dtype = model_dtype(cfg)
-        if c.lpi.prompt_type not in ("lpi", "linear"):
-            raise NotImplementedError(
-                f"grounding prompt_type {c.lpi.prompt_type!r} is not ported yet")
+        lpi = c.lpi
+        pool_args = (c.total_tasks, lpi.prompt_depth, lpi.prompt_length, c.swin.embed_dim,
+                     c.bert.hidden_size)
+        if lpi.prompt_type in ("lpi", "linear"):
+            prompts = DecomposedPromptPool(*pool_args, lpi.prompt_rank)
+        elif lpi.prompt_type == "maple" or lpi.interact_type == "maple":
+            prompts = MaPLePromptPool(*pool_args)
+        elif lpi.prompt_type == "sprompts":
+            prompts = NormalPromptPool(*pool_args)
+        else:
+            raise ValueError(f"unsupported grounding prompt_type {lpi.prompt_type!r}")
         self.encoder = FusedDualEncoder(c.swin, c.bert, c.lpi, c.total_tasks, dtype)
         self.fpn = FPN(self.encoder.swin.dims[-3:], c.dyhead.channels, dtype,
                        use_gn=c.fpn_use_gn)
@@ -49,9 +60,7 @@ class GroundedVLModel(nn.Module):
                              dtype=dtype)
         self.tunable_linear = (TunableLinear(c.bert.hidden_size)
                                if c.dyhead.add_linear_layer else None)
-        self.prompts = DecomposedPromptPool(
-            c.total_tasks, c.lpi.prompt_depth, c.lpi.prompt_length,
-            c.swin.embed_dim, c.bert.hidden_size, c.lpi.prompt_rank)
+        self.prompts = prompts
         self._anchor_cache = {}
 
     def _head_flat(self, feats, embedded, masks, B):
@@ -147,10 +156,11 @@ def init_parameters(model: GroundedVLModel, generator: torch.Generator) -> None:
     Dense/Conv kernels lecun-normal (Flax's: a normal cut at +-2 standard
     deviations, rescaled to variance 1/fan_in), biases zero, norms one/zero,
     token and position embeddings N(0, 0.02), relative-position tables
-    N(0, 0.02) cut at +-2 (Flax's `truncated_normal`), prompt factors
-    N(0, 0.5), interaction factors U(+-1/sqrt(rank)), the head's convs
-    N(0, 0.01) with the prior-probability bias on cls_logits and bias0, and
-    the zero-init tunable linear."""
+    N(0, 0.02) cut at +-2 (Flax's `truncated_normal`), the prompt pool's
+    leaves as its `init_leaf_` draws them, interaction factors
+    U(+-1/sqrt(rank)), the head's convs N(0, 0.01) with the
+    prior-probability bias on cls_logits and bias0, and the zero-init
+    tunable linear."""
     c = model.cfg
     prior = VLDyHead.prior_bias(c.dyhead)
     bound = 1.0 / math.sqrt(c.lpi.interact_rank)
@@ -164,10 +174,10 @@ def init_parameters(model: GroundedVLModel, generator: torch.Generator) -> None:
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if name.startswith("prompts."):
-            normal(p, 0.5)
+            model.prompts.init_leaf_(leaf, p, generator)
         elif name.startswith("encoder.interact."):
             if leaf.startswith("d"):
-                p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
+                uniform_(p, bound, generator)
             else:
                 p.fill_(1.0 if leaf.endswith("scale") else 0.0)
         elif leaf in ("word_embeddings", "position_embeddings", "token_type_embeddings"):

@@ -25,6 +25,11 @@ def normal_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
     p.copy_(torch.randn(p.shape, generator=generator) * std)
 
 
+def uniform_(p: torch.Tensor, bound: float, generator: torch.Generator) -> None:
+    """Fill `p` with U(-bound, bound) draws from `generator`."""
+    p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
+
+
 def truncated_normal_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
     """Fill `p` with std times a standard normal cut at +-2, by the inverse
     CDF (Flax `truncated_normal`)."""

@@ -1,17 +1,22 @@
 """How much the port's fp32 pool gradient depends on the order of its sums.
 
-    python3 scripts/torch_grad_order.py
+    python3 scripts/torch_grad_order.py [lpi|sprompts|maple ...]
 
-Needs one CUDA card. At full width (GLIP-T + LPI, 448 px, batch 1, fp32,
-task 1, seeded weights) it computes `GroundingLearner._losses` and the
-gradient of the task-1 pool rows, with the offset convs scaled as
-`lpi_tpu_torch.bench.honest_offsets` scales them (kernel x30, bias N(0, 1)) and without, and
-compares, by relative Frobenius error of the concatenated gradient:
+Needs one CUDA card. At full width (GLIP-T, 448 px, batch 1, fp32, task 1,
+seeded weights) it computes `GroundingLearner._losses` and the gradient of
+the task-1 pool rows and compares, by relative Frobenius error of the
+concatenated gradient and of each leaf:
 
 * the card against itself (two identical runs);
 * the CUDA kernels against their plain versions, both on the card;
 * the card against the CPU;
-* the CPU at two thread counts (scaled offsets only).
+* the CPU at half its threads and at a quarter against all of them.
+
+"lpi" (the default) runs the LPI pool with the offset convs scaled as
+`lpi_tpu_torch.bench.honest_offsets` scales them (kernel x30, bias N(0, 1))
+and without (the CPU thread counts with the scaled ones only). "sprompts"
+and "maple" run the grounding section of `configs/baselines/<name>.json`
+at the seeded offsets, as `chip_smoke.py`'s phase 13d does.
 """
 
 from __future__ import annotations
@@ -57,13 +62,25 @@ def grads(cfg, state, one, device) -> dict:
     return {n: x[TASK].double().cpu().numpy() for n, x in zip(names, g)}
 
 
-def compare(a, b, what):
+def compare(a, b, what, leaves=3):
     va = np.concatenate([a[n].ravel() for n in sorted(a)])
     vb = np.concatenate([b[n].ravel() for n in sorted(b)])
     worst = sorted(((np.linalg.norm(a[n] - b[n]) / max(np.linalg.norm(b[n]), 1e-30), n)
-                    for n in b), reverse=True)[:3]
+                    for n in b), reverse=True)[:leaves]
     print(f"{what}: {np.linalg.norm(va - vb) / np.linalg.norm(vb):.3e}; worst leaves "
-          + ", ".join(f"{n} {e:.2e}" for e, n in worst), flush=True)
+          + ", ".join(f"{n} {e:.3e}" for e, n in worst), flush=True)
+
+
+def cpu_threads(cfg, state, one, cpu, threads):
+    """The CPU's gradient at half and a quarter of its threads against `cpu`
+    (all of them): another order of the CPU's sums."""
+    for n in sorted({max(1, threads // 2), max(1, threads // 4)} - {threads}, reverse=True):
+        torch.set_num_threads(n)
+        try:
+            compare(grads(cfg, state, one, "cpu"), cpu, f"cpu {n} vs {threads} threads",
+                    leaves=len(cpu))
+        finally:
+            torch.set_num_threads(threads)
 
 
 def plain_on_card():
@@ -71,8 +88,9 @@ def plain_on_card():
     fwd = {1: dk.window_accumulate_taps_inpad_reference, 2: dk.window_accumulate_taps_s2_reference}
     bwd = {1: dk.window_accumulate_taps_inpad_backward_reference,
            2: dk.window_accumulate_taps_s2_backward_reference}
-    dk._launch = lambda h, oy, ox, g, m, K, kw, s: fwd[s](h, oy, ox, g, m, K, kw)
-    dk._launch_backward = lambda h, oy, ox, g, ct, m, K, kw, s: bwd[s](h, oy, ox, g, ct, m, K, kw)
+    dk._launch = lambda h, oy, ox, g, m, K, kw, s, padded: fwd[s](h, oy, ox, g, m, K, kw)
+    dk._launch_backward = (lambda h, oy, ox, g, ct, m, K, kw, s, padded:
+                           bwd[s](h, oy, ox, g, ct, m, K, kw))
 
 
 def main() -> int:
@@ -81,31 +99,33 @@ def main() -> int:
         return 1
     print(f"card: {chip_smoke.card_line()}", flush=True)
     cuda_build.build()
-    cfg = GroundingConfig(batch_size=1, dtype="float32")
-    tok = BertTokenizer(max_len=cfg.bert.max_query_len, vocab_size=cfg.bert.vocab_size)
-    batch = next(synthetic_grounding_task(TASK, 4, 448, tok, max_boxes=cfg.max_boxes).batches(4))
-    one = {k: v[:1] for k, v in batch.items()}
     threads = torch.get_num_threads()
     kernels = dk._launch, dk._launch_backward
-    for scaled in (True, False):
-        print(f"== offset convs scaled: {scaled}", flush=True)
-        state = weights(cfg, scaled)
-        card = grads(cfg, state, one, "cuda")
-        compare(card, grads(cfg, state, one, "cuda"), "card vs card")
-        plain_on_card()
-        try:
-            compare(card, grads(cfg, state, one, "cuda"), "card kernels vs card plain versions")
-        finally:
-            dk._launch, dk._launch_backward = kernels
-        cpu = grads(cfg, state, one, "cpu")
-        compare(card, cpu, "card vs cpu")
-        if scaled:
-            torch.set_num_threads(max(1, threads // 2))
+    for pool in sys.argv[1:] or ["lpi"]:
+        cfg = (GroundingConfig(batch_size=1, dtype="float32") if pool == "lpi" else
+               chip_smoke.baseline_config(pool, "grounding", batch_size=1, dtype="float32"))
+        tok = BertTokenizer(max_len=cfg.bert.max_query_len, vocab_size=cfg.bert.vocab_size)
+        batch = next(synthetic_grounding_task(TASK, 4, 448, tok,
+                                              max_boxes=cfg.max_boxes).batches(4))
+        one = {k: v[:1] for k, v in batch.items()}
+        for scaled in ((True, False) if pool == "lpi" else (False,)):
+            print(f"== pool {pool}, offset convs scaled: {scaled}", flush=True)
+            state = weights(cfg, scaled)
+            card = grads(cfg, state, one, "cuda")
+            leaves = len(card)
+            print("  leaf norms on the card: " + ", ".join(
+                f"{n} {np.linalg.norm(card[n]):.3e}" for n in sorted(card)), flush=True)
+            compare(card, grads(cfg, state, one, "cuda"), "card vs card", leaves)
+            plain_on_card()
             try:
-                compare(grads(cfg, state, one, "cpu"), cpu,
-                        f"cpu {max(1, threads // 2)} vs {threads} threads")
+                compare(card, grads(cfg, state, one, "cuda"),
+                        "card kernels vs card plain versions", leaves)
             finally:
-                torch.set_num_threads(threads)
+                dk._launch, dk._launch_backward = kernels
+            cpu = grads(cfg, state, one, "cpu")
+            compare(card, cpu, "card vs cpu", leaves)
+            if scaled or pool != "lpi":
+                cpu_threads(cfg, state, one, cpu, threads)
     return 0
 
 

@@ -225,9 +225,24 @@ def test_frozen_extraction_matches_jax(pair):
         _assert_close(got.numpy(), np.asarray(want))
 
 
-def test_other_prompt_types_are_not_ported():
-    cfg = _cfg(tc)
-    for kind in ("sprompts", "l2p", "maple", "clip"):
+@pytest.mark.parametrize("kind", ["maple", "bogus"])
+def test_other_prompt_types_are_not_ported(kind):
+    """Retrieval has no MaPLe pool and no pool for an unknown type: SliNet
+    and `build_prompt_pool` refuse them with the JAX package's ValueError
+    (the baselines "sprompts", "l2p" and "clip":
+    tests/test_torch_baseline_retrieval.py)."""
+    from lpi_tpu.prompts.pools import build_prompt_pool as jbuild
+    from lpi_tpu_torch.prompts.pools import build_prompt_pool
+
+    for c, net in ((tc, SliNet), (jc, JSliNet)):
+        cfg = _cfg(c)
         bad = dataclasses.replace(cfg, lpi=dataclasses.replace(cfg.lpi, prompt_type=kind))
-        with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-            SliNet(bad)
+        with pytest.raises(ValueError, match="prompt_type"):
+            if net is SliNet:
+                net(bad)
+            else:  # Flax builds the pool at init
+                images, ids = _inputs()
+                net(bad).init(jax.random.PRNGKey(0), jnp.asarray(images), jnp.asarray(ids), 0)
+    for build in (build_prompt_pool, jbuild):
+        with pytest.raises(ValueError, match="prompt_type"):
+            build(kind, 3, 3, 4, 64, 64)

@@ -667,6 +667,71 @@ def test_captured_retrieval_step_equals_eager(card):
         assert torch.equal(p, theirs[name]), name
 
 
+def test_captured_l2p_step_equals_eager(card):
+    """The retrieval gate's tiny SliNet with the L2P pool: three steps
+    eager and captured from the same seeded weights under deterministic
+    algorithms, equal bit for bit (the vote over a fixed-size count and the
+    stable sort take no host sync); only row 1 of the shared pool moved."""
+    import dataclasses
+
+    from lpi_tpu_torch.bench import deterministic, gate_retrieval_config
+    from lpi_tpu_torch.continual.learner import RetrievalLearner
+    from lpi_tpu_torch.data.retrieval import synthetic_correlated_session
+    from lpi_tpu_torch.data.tokenizer import ClipTokenizer
+
+    cfg = gate_retrieval_config()
+    cfg = dataclasses.replace(cfg, lpi=dataclasses.replace(
+        cfg.lpi, prompt_type="l2p", task_alignment=False, layer_alignment=False))
+    eager, captured = (RetrievalLearner(cfg, generator=torch.Generator().manual_seed(0),
+                                        device="cuda") for _ in range(2))
+    start = {n: p.detach().clone() for n, p in eager.pools.items()}
+    ds = synthetic_correlated_session(1, 24, 32, ClipTokenizer(), cfg.clip.n_ctx)
+    with deterministic():
+        steps = [eager.make_train_step(1, 1, 2, eager=True), captured.make_train_step(1, 1, 2)]
+        for batch in list(ds.batches(cfg.batch_size, seed=0))[:3]:
+            want, got = (s(batch) for s in steps)
+            assert set(got) == {"total", "base_loss"}
+            for k in want:
+                assert torch.equal(got[k], want[k]), k
+    assert len(captured._graphs) == 1
+    theirs = dict(eager.model.named_parameters())
+    for name, p in captured.model.named_parameters():
+        assert torch.equal(p, theirs[name]), name
+    for name, p in captured.pools.items():
+        assert torch.equal(p[[0, 2]], start[name][[0, 2]]), name
+        assert not torch.equal(p[1], start[name][1]), name
+
+
+def test_captured_maple_step_equals_eager(card):
+    """The gate's tiny grounding model with `configs/baselines/maple.json`'s
+    pool (MaPLe, replace mode, no interaction): three steps eager and
+    captured, equal bit for bit; one capture made."""
+    import dataclasses
+
+    from lpi_tpu_torch.bench import deterministic, gate_grounding_config
+    from lpi_tpu_torch.continual.grounding_learner import GroundingLearner
+
+    cfg = gate_grounding_config()
+    cfg = dataclasses.replace(cfg, lpi=dataclasses.replace(
+        cfg.lpi, prompt_type="maple", interact_type="maple", interact=False))
+    eager, captured = (GroundingLearner(cfg, generator=torch.Generator().manual_seed(0),
+                                        device="cuda") for _ in range(2))
+    assert set(captured.pools) == {"prompts.textual", "prompts.proj_kernel",
+                                   "prompts.proj_bias"}
+    with deterministic():
+        steps = [eager.make_step(1, steps_per_epoch=1, epochs=2, eager=True),
+                 captured.make_step(1, steps_per_epoch=1, epochs=2)]
+        for batch in _gate_batches(eager.cfg):
+            want, got = (s(batch) for s in steps)
+            assert {"alignment_loss", "task_loss"} <= set(got)
+            for k in want:
+                assert torch.equal(got[k], want[k]), k
+    assert len(captured._graphs) == 1 and not eager._graphs
+    theirs = dict(eager.model.named_parameters())
+    for name, p in captured.model.named_parameters():
+        assert torch.equal(p, theirs[name]), name
+
+
 @pytest.mark.parametrize("kind", ["grounding", "retrieval"])
 def test_step_captured_before_restore_trains_the_restored_weights(card, kind, tmp_path):
     """A learner captures its step at task 0 and takes one step, then
