@@ -152,6 +152,28 @@ weights, under deterministic algorithms:
        `eval-all --grounding` in a learner seeded 99, equal to the
        training run's head outputs and results in bits.
 
+The head's variants and GLIP-KNOW's detection mode, at `GroundingConfig()`'s
+full width with seeded weights:
+
+   14. 14a: the early-fusion request (`dyhead.early_fuse`: a VLFuse at
+       embed 2048 over 8 heads between the 4,181 visual tokens and the text,
+       and a BERT layer, before each of the 6 towers), 1 + 5 requests eager
+       and 1 + 5 captured, equal, 54 / 24 window launches a forward by
+       counter and kernel name, then fp32 card vs CPU on the head outputs;
+       14b: its train step (b4, task 1, `honest_offsets`, the fusion and
+       BERT layers frozen), 1 + 5 steps a mode as phase 5 (54 / 24 / 54 / 24,
+       captured equal to eager in bits), and phase 6's fp32 loss and pool
+       gradient at batch 1, card vs CPU, each leaf too; 14c:
+       `predict_classes` (GLIP-KNOW) on the LPI model with five class names
+       and a knowledge json written to a temporary directory, eager and
+       captured, equal, 54 / 24 a forward; 14d: the plain head (no
+       deformable conv, fusion or DyReLU) and the "exact" route, one request
+       each, no deform kernel launched, fp32 card vs CPU; 14e:
+       `check_deform_clipping` under its 1% warning at the seeded offsets
+       (at 448 px a few offsets of the seeded convs pass +-3) and
+       over it with the offset convs scaled, read at `honest_offsets`
+       between, each the largest of the convs' recorded shares.
+
 Each phase drops its learners and predictors, and with them their graphs'
 memory pools, before the next.
 
@@ -633,11 +655,12 @@ def expected_counts(dk, fk, cfg, n: int, train: bool) -> dict:
     return want
 
 
-def train_phase(dk, fk, cfg, tok, records, what=None, keep_model=False):
+def train_phase(dk, fk, cfg, tok, records, what=None, keep_model=False, n_steps=10):
     """Phases 5 and 5b: the full-width train step, batch 4, 448 px, bf16,
     task 1, on the route `cfg.dyhead.deform_impl` names, with the offset
-    convs at a trained model's size (`honest_offsets`): 1 + 10 steps eagerly,
-    then 1 + 10 captured (the first step warms up and captures) from the
+    convs at a trained model's size (`honest_offsets`): 1 + `n_steps` steps
+    eagerly, then 1 + `n_steps` captured (the first step warms up and
+    captures) from the
     same starting state, under deterministic algorithms. Per mode: the
     launch counters, the median step, samples/s, a profiled step's busy
     share and kernels, the peak memory; the replayed step's deform launches
@@ -661,14 +684,14 @@ def train_phase(dk, fk, cfg, tok, records, what=None, keep_model=False):
                                   max_boxes=cfg.max_boxes)
     batch = next(ds.batches(TRAIN_BATCH))
     before = {n: p.detach().clone() for n, p in learner.model.named_parameters()}
-    n_steps = 10
     runs = {}
     with deterministic():
         for mode in ("eager", "captured"):
             with torch.no_grad():
                 for name, p in learner.pools.items():
                     p.copy_(before[name])
-            step = learner.make_step(TRAIN_TASK, steps_per_epoch=10, epochs=cfg.epochs_per_task,
+            step = learner.make_step(TRAIN_TASK, steps_per_epoch=n_steps,
+                                     epochs=cfg.epochs_per_task,
                                      eager=mode == "eager")
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -900,18 +923,22 @@ def detection_rows(result):
                   for e, s, b in zip(result["entities"], result["scores"], result["boxes"]))
 
 
-def predict_phase(dk, fk, model, keys, tok, cfg, image, caption, n_req=11, profile=True):
-    """Phases 3 and 3b: 1 + `n_req` requests to a bf16 predictor of `model`
-    on the card, eager and captured (the first captured request warms up
-    and captures both graphs): the launch counters, one request profiled
-    with its deform launches by kernel name (unless not `profile`), the
-    median latency of each mode, equal task ids and equal detections. ->
-    (the captured predictor, the eager launch counters over `n_req`
+def predict_phase(dk, fk, model, keys, tok, cfg, image, caption, n_req=11, profile=True,
+                  classes=None):
+    """Phases 3, 3b, 14a and 14c: 1 + `n_req` requests to a bf16 predictor
+    of `model` on the card, eager and captured (the first captured request
+    warms up and captures its graphs): the launch counters, one request
+    profiled with its deform launches by kernel name (unless not
+    `profile`), the median latency and peak memory of each mode, equal task
+    ids and equal detections. Each request is `predict(image, caption)`,
+    or with `classes`, a (class names, knowledge) pair, GLIP-KNOW's
+    `predict_classes` (knowledge type "def_wiki"), whose reply has no task
+    id. -> (the captured predictor, the eager launch counters over `n_req`
     requests, the replay's deform launches per request, or None)."""
     from lpi_tpu_torch.graphs import WARMUP
     from lpi_tpu_torch.serve.predictor import GroundingPredictor
 
-    route = cfg.dyhead.deform_impl
+    what = f"predict {cfg.dyhead.deform_impl}" if classes is None else "predict_classes"
     # random weights score every box near the 0.01 prior: drop the pre-NMS
     # threshold so that all candidates reach NMS and the reply is not empty
     atss = dataclasses.replace(cfg.atss, inference_thresh=0.0)
@@ -920,55 +947,65 @@ def predict_phase(dk, fk, model, keys, tok, cfg, image, caption, n_req=11, profi
         predictor = GroundingPredictor(model, keys, tok, image_size=cfg.image_size,
                                        score_thresh=0.0, atss_cfg=atss, device="cuda",
                                        eager=mode == "eager")
+
+        def request():
+            if classes is None:
+                return predictor.predict(image, caption)
+            return predictor.predict_classes(image, classes[0], classes[1],
+                                             knowledge_type="def_wiki")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         reset_counts(dk, fk)
         t = time.perf_counter()
-        predictor.predict(image, caption)
+        request()
         first = (time.perf_counter() - t) * 1e3
         if mode == "eager":
             reset_counts(dk, fk)
         lat = []
         for _ in range(n_req):
             t = time.perf_counter()
-            result = predictor.predict(image, caption)
+            result = request()
             torch.cuda.synchronize()
             lat.append((time.perf_counter() - t) * 1e3)
         launches = launch_counts(dk, fk)
         calls = n_req if mode == "eager" else WARMUP + 1
-        log(f"predict {route} ({mode}): launch counters {launches} over {calls} host calls "
+        log(f"{what} ({mode}): launch counters {launches} over {calls} host calls "
             f"of the forward")
         want = expected_counts(dk, fk, cfg, calls, train=False)
         if launches != want:
-            raise AssertionError(f"want {want} launches, got {launches}")
+            raise AssertionError(f"{what} ({mode}): want {want} launches, got {launches}")
         boxes, scores = result["boxes"], result["scores"]
+        names_ok = (0 <= result["task_id"] < cfg.total_tasks if classes is None
+                    else set(result["entities"]) <= set(classes[0]))
         if not (boxes.ndim == 2 and boxes.shape[1] == 4 and len(boxes) == len(scores)
                 == len(result["entities"]) and len(boxes) > 0
-                and np.isfinite(boxes).all() and np.isfinite(scores).all()
-                and 0 <= result["task_id"] < cfg.total_tasks):
-            raise AssertionError(f"bad predict output ({mode}): {result}")
-        log(f"predict {route} ({mode}): entities {sorted(set(result['entities']))}, "
+                and np.isfinite(boxes).all() and np.isfinite(scores).all() and names_ok):
+            raise AssertionError(f"bad {what} output ({mode}): {result}")
+        log(f"{what} ({mode}): entities {sorted(set(result['entities']))}, "
             f"{len(boxes)} boxes, top score {float(scores.max()):.4f}, "
-            f"task_id {result['task_id']}")
+            f"task_id {result.get('task_id')}")
         medians[mode] = statistics.median(lat)
-        log(f"predict latency {route} ({mode}) on {card_line()}: median "
+        log(f"{what} latency ({mode}) on {card_line()}: median "
             f"{medians[mode]:.3f} ms over {n_req} requests after the first "
-            f"({first:.3f} ms), all {[round(x, 3) for x in lat]}")
+            f"({first:.3f} ms), all {[round(x, 3) for x in lat]}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         per_request = None
         if profile:
-            kernels, stats = _profile(lambda: predictor.predict(image, caption),
-                                      f"request ({route}, {mode})")
+            kernels, stats = _profile(request, f"{what} request ({mode})")
             log_deform_kernels(kernels)
             per_request = check_replay_launches(dk, fk, cfg, kernels, False,
-                                                f"predict {route} ({mode})")
+                                                f"{what} ({mode})")
         results[mode] = result
         if mode == "eager":
             eager_launches = launches
-    if results["captured"]["task_id"] != results["eager"]["task_id"]:
-        raise AssertionError(f"predict {route}: task ids differ, captured "
+    if results["captured"].get("task_id") != results["eager"].get("task_id"):
+        raise AssertionError(f"{what}: task ids differ, captured "
                              f"{results['captured']['task_id']}, eager "
                              f"{results['eager']['task_id']}")
     if detection_rows(results["captured"]) != detection_rows(results["eager"]):
-        raise AssertionError(f"predict {route}: captured and eager detections differ")
-    log(f"predict {route}: captured and eager give task id {results['eager']['task_id']} and "
+        raise AssertionError(f"{what}: captured and eager detections differ")
+    log(f"{what}: captured and eager give task id {results['eager'].get('task_id')} and "
         f"the same {len(results['eager']['boxes'])} detections; median "
         f"{medians['captured']:.3f} ms captured against {medians['eager']:.3f} ms eager")
     return predictor, eager_launches, per_request
@@ -2025,6 +2062,182 @@ def baseline_phase(dk, fk, tok):
             shutil.rmtree(work, ignore_errors=True)
 
 
+# ---- phase 14: the head variants and GLIP-KNOW's detection mode ---------------
+VARIANT_REQUESTS, VARIANT_STEPS = 5, 5
+KNOWLEDGE = {
+    "car": {"clean_name": "car", "def_wiki": "a road vehicle with four wheels.",
+            "gpt3": ["cars have doors.", "cars drive on roads."]},
+    "tree": {"clean_name": "tree", "def_wiki": "a tall perennial woody plant."},
+    "dog": {"clean_name": "dog", "def_wiki": "a domesticated carnivorous mammal.",
+            "gpt3": ["dogs bark."]},
+}
+CLASS_NAMES = ["car", "tree", "dog", "person", "bench"]
+
+
+def seeded_keys(cfg, seed):
+    """Task keys for the 448 px model: random unit-scale centres in P7's
+    feature space, every task valid."""
+    from lpi_tpu_torch.continual.keys import TaskKeys
+
+    rng = np.random.RandomState(seed)
+    feat_dim = cfg.dyhead.channels * 4 * 4  # P7 at 448 px
+    centers = (rng.randn(cfg.total_tasks, cfg.num_key_clusters, feat_dim)
+               / np.sqrt(feat_dim)).astype(np.float32)
+    return TaskKeys(torch.from_numpy(centers), torch.ones(cfg.total_tasks, dtype=torch.bool))
+
+
+WARN_FRAC = 0.01  # check_deform_clipping's default warning threshold
+
+
+def with_head(cfg, **dyhead):
+    return dataclasses.replace(cfg, dyhead=dataclasses.replace(cfg.dyhead, **dyhead))
+
+
+def no_kernel_request(dk, fk, model, cfg, keys, tok, image, caption, what):
+    """14d: one bf16 request (eager) to `model`, whose head runs no deform
+    kernel: every counter stays 0 and the reply is finite; then the fp32
+    head outputs and task id, card against CPU."""
+    from lpi_tpu_torch.serve.predictor import GroundingPredictor
+
+    atss = dataclasses.replace(cfg.atss, inference_thresh=0.0)
+    predictor = GroundingPredictor(model, keys, tok, image_size=cfg.image_size,
+                                   score_thresh=0.0, atss_cfg=atss, device="cuda", eager=True)
+    reset_counts(dk, fk)
+    t = time.perf_counter()
+    result = predictor.predict(image, caption)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = {k: n for k, n in launch_counts(dk, fk).items() if n}
+    if launches or not (len(result["boxes"]) > 0 and np.isfinite(result["scores"]).all()):
+        raise AssertionError(f"{what}: launches {launches}, reply {result}")
+    log(f"{what} request (eager, bf16) on {card_line()}: {ms:.3f} ms, no deform kernel "
+        f"launched, {len(result['boxes'])} boxes, task_id {result['task_id']}")
+    canvas, _ = predictor._prepare_image(image)
+    ids, mask, _ = tok([caption])
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    compare_heads(fp32_heads(model, cfg32, keys, canvas, ids, mask, "cuda"),
+                  fp32_heads(model, cfg32, keys, canvas, ids, mask, "cpu"), f"{what}, card vs cpu")
+
+
+def variants_phase(dk, fk, tok, records):
+    """Phase 14, at `GroundingConfig()`'s full width with seeded weights:
+    14a: the early-fusion request (GLIP-T(C)'s VLFuse, embed 2048 over 8
+    heads, and a BERT layer before each of the 6 towers; 4,181 visual
+    tokens against the padded text), eager and captured (`predict_phase`),
+    then fp32 card against CPU; 14b: its train step (b4, task 1,
+    `honest_offsets`, the fusion frozen, `train_phase`) and its fp32 loss
+    and pool gradient, card vs CPU (`gradient_phase`); 14c: GLIP-KNOW's
+    `predict_classes` on the LPI model with a knowledge json written here;
+    14d: the plain head and the "exact" route, one request each, no deform
+    kernel, fp32 card vs CPU; 14e: `check_deform_clipping` under its
+    warning threshold at the seeded offsets and over it with the offset
+    convs scaled, read at `honest_offsets` between, each the largest of
+    the convs' recorded shares."""
+    import shutil
+    import tempfile
+
+    from lpi_tpu_torch.bench import honest_offsets
+    from lpi_tpu_torch.config import GroundingConfig
+    from lpi_tpu_torch.data.knowledge import load_knowledge_file
+    from lpi_tpu_torch.models.glip.grounding import GroundedVLModel, init_parameters
+    from lpi_tpu_torch.serve.predictor import GroundingPredictor
+
+    cfg = GroundingConfig(batch_size=TRAIN_BATCH)
+    cfg_ef = with_head(cfg, early_fuse=True)
+    keys = seeded_keys(cfg, 14)
+    rng = np.random.RandomState(14)
+    image = rng.randint(0, 256, size=(480, 640, 3)).astype(np.uint8)
+    per_path = {}
+
+    t = time.perf_counter()
+    model = GroundedVLModel(cfg_ef)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    log(f"14a: early fusion (embed {cfg_ef.dyhead.fuse_embed_dim}, "
+        f"{cfg_ef.dyhead.fuse_heads} heads), {sum(p.numel() for p in model.head.fuses.parameters())}"
+        f" VLFuse and {sum(p.numel() for p in model.head.langs.parameters())} BERT-layer "
+        f"parameters in the head")
+    predictor, launches, per_request = predict_phase(dk, fk, model, keys, tok, cfg_ef, image,
+                                                     CLI_CAPTION, n_req=VARIANT_REQUESTS)
+    per_path["early_fuse_request"] = (launches, per_request, VARIANT_REQUESTS)
+    canvas, _ = predictor._prepare_image(image)
+    ids, mask, _ = tok([CLI_CAPTION])
+    del predictor
+    cfg32 = dataclasses.replace(cfg_ef, dtype="float32")
+    compare_heads(fp32_heads(model, cfg32, keys, canvas, ids, mask, "cuda"),
+                  fp32_heads(model, cfg32, keys, canvas, ids, mask, "cpu"),
+                  "early fusion, card vs cpu")
+    del model
+    torch.cuda.empty_cache()
+    log(f"phase 14a: {time.perf_counter() - t:.3f} s")
+
+    t = time.perf_counter()
+    step_records = {name: {} for name in records}
+    batch = train_phase(dk, fk, cfg_ef, tok, step_records, "pallas early-fused",
+                        n_steps=VARIANT_STEPS)
+    per_path["early_fuse_step"] = (
+        {k: v["launches"] for k, v in step_records.items() if v},
+        {k: v["replay_launches_per_step"] for k, v in step_records.items() if v},
+        VARIANT_STEPS)
+    log("phase 14b: fp32 losses and pool gradient, early fusion, card vs cpu")
+    gradient_phase(cfg_ef, batch)
+    log(f"phase 14b: {time.perf_counter() - t:.3f} s")
+
+    t = time.perf_counter()
+    model = GroundedVLModel(cfg)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    work = tempfile.mkdtemp(prefix="chip_smoke_knowledge_")
+    try:
+        path = os.path.join(work, "knowledge.json")
+        with open(path, "w") as f:
+            json.dump(KNOWLEDGE, f)
+        predictor, launches, per_request = predict_phase(
+            dk, fk, model, None, tok, cfg, image, None, n_req=VARIANT_REQUESTS,
+            classes=(CLASS_NAMES, load_knowledge_file(path)))
+        per_path["knowledge_request"] = (launches, per_request, VARIANT_REQUESTS)
+        del predictor
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 14c: {time.perf_counter() - t:.3f} s")
+
+    t = time.perf_counter()
+    plain_cfg = with_head(cfg, use_dfconv=False, use_dyfuse=False, use_dyrelu=False)
+    plain = GroundedVLModel(plain_cfg)
+    init_parameters(plain, torch.Generator().manual_seed(0))
+    no_kernel_request(dk, fk, plain, plain_cfg, keys, tok, image, CLI_CAPTION, "plain head")
+    del plain
+    exact_cfg = with_head(cfg, deform_impl="exact")
+    exact = GroundedVLModel(exact_cfg)
+    exact.load_state_dict(model.state_dict())
+    no_kernel_request(dk, fk, exact, exact_cfg, keys, tok, image, CLI_CAPTION, "exact route")
+    del exact
+    torch.cuda.empty_cache()
+    log(f"phase 14d: {time.perf_counter() - t:.3f} s")
+
+    t = time.perf_counter()
+    predictor = GroundingPredictor(model, keys, tok, image_size=cfg.image_size, device="cuda")
+    readings = {}
+    for offsets in ("seeded", "honest_offsets", "x100"):
+        if offsets == "honest_offsets":
+            honest_offsets(model)
+        elif offsets == "x100":
+            with torch.no_grad():
+                for tower in model.head.towers:
+                    tower.offset.weight.mul_(100.0)
+        readings[offsets] = worst = predictor.check_deform_clipping(image)
+        log(f"14e: check_deform_clipping at {offsets} offsets: {worst}")
+    if not (readings["seeded"] < WARN_FRAC < readings["x100"]):
+        raise AssertionError(f"check_deform_clipping: {readings}, warning at {WARN_FRAC}")
+    del predictor, model
+    torch.cuda.empty_cache()
+    log(f"phase 14e: {time.perf_counter() - t:.3f} s")
+
+    for path, (launches, per_call, calls) in per_path.items():
+        for name, n in launches.items():
+            if name in records and n:
+                records[name].setdefault("phase14_launches", {})[path] = {
+                    "host_calls": calls, "launches": n, "per_call_by_name": per_call[name]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2151,6 +2364,11 @@ def main() -> int:
     t = time.perf_counter()
     baseline_phase(dk, fk, tok)
     log(f"phase 13: {time.perf_counter() - t:.3f} s")
+
+    # ---- the head variants and GLIP-KNOW's detection mode ----------------
+    t = time.perf_counter()
+    variants_phase(dk, fk, tok, records)
+    log(f"phase 14: {time.perf_counter() - t:.3f} s")
 
     for rec in records.values():
         kinds = rec.pop("bound_kinds")

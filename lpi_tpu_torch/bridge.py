@@ -12,8 +12,10 @@
 * LayerNorm / GroupNorm `scale` becomes `weight`; the GroupNorm FPN's
   `{inner,layer}{i}_gn` (siblings of the convs in Flax, though built inside
   an `nn.Sequential`) become the `gn` of conv i;
-* the prompt and interaction pools and the head's scalars are copied as
-  they are.
+* the head's `tower{i}`, `fuse{i}` (early fusion's VLFuse) and `lang{i}`
+  (its BERT layers) become `towers.{i}`, `fuses.{i}` and `langs.{i}`;
+* the prompt and interaction pools and the head's scalars (VLFuse's
+  layer scales among them) are copied as they are.
 
 `slinet_params_from_jax(params)` maps the Flax params tree of
 `lpi_tpu.models.clip.SliNet` to a `state_dict` of
@@ -45,6 +47,8 @@ _RENAMES = (
     (re.compile(r"^fpn/(inner|layer)(\d+)_conv/"), r"fpn/\1/\2/"),
     (re.compile(r"^fpn/(inner|layer)(\d+)_gn/"), r"fpn/\1/\2/gn/"),
     (re.compile(r"^head/tower(\d+)/"), r"head/towers/\1/"),
+    (re.compile(r"^head/fuse(\d+)/"), r"head/fuses/\1/"),
+    (re.compile(r"^head/lang(\d+)/"), r"head/langs/\1/"),
 )
 _STAGE = re.compile(r"^encoder/stage(\d+)/(vblock|tlayer)(\d)/(.*)$")
 _TOWER = re.compile(r"^(clip/(?:visual|text)/transformer)/block/(.*)$")

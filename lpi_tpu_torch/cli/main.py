@@ -8,6 +8,8 @@ sessions, the grounding demo and result post-processing.
         --checkpoint-dir checkpoints_grounding
     python -m lpi_tpu_torch.cli.main predict image.png "a dog on a bench" \\
         --checkpoint-dir checkpoints_grounding
+    python -m lpi_tpu_torch.cli.main predict image.png --classes dog,bench \\
+        --knowledge-file knowledge.json
     python -m lpi_tpu_torch.cli.main report res/<timestamp>.json --metric i2t
 
 Every command that runs a model runs it on the card; `--platform cpu` runs
@@ -21,9 +23,11 @@ session evaluated again from its checkpoint gives the numbers recorded when
 it was trained. `--config` takes the nested-json overrides of
 `lpi_tpu_torch.config.load_config`.
 
-The commands whose modules are not ported yet (`serve`, `eval-detection`,
-`fetch-weights`, `predict --classes`, `train-grounding --dataset`) stay in
-the parser and exit non-zero, naming their ROADMAP item.
+`predict --classes` runs GLIP-KNOW's detection mode
+(`GroundingPredictor.predict_classes`) with the config's `knowledge`
+settings. The commands whose modules are not ported yet (`serve`,
+`eval-detection`, `fetch-weights`, `train-grounding --dataset`) stay in the
+parser and exit non-zero, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -36,13 +40,12 @@ import numpy as np
 import torch
 
 NOT_PORTED = {
-    "serve": "serve (the gradio webui) is not ported yet (ROADMAP A11)",
+    "serve": "serve (the gradio webui) is not ported yet (ROADMAP §A.3)",
     "eval-detection": "eval-detection (the COCO, LVIS, Flickr and VOC evaluators) is not "
-                      "ported yet (ROADMAP A13)",
-    "fetch-weights": "fetch-weights (core/fetch.py) is not ported yet (ROADMAP A12)",
+                      "ported yet (ROADMAP §A.6)",
+    "fetch-weights": "fetch-weights (core/fetch.py) is not ported yet (ROADMAP §A.5)",
 }
-CLASSES_NOT_PORTED = "predict --classes (GLIP-KNOW detection) is not ported yet (ROADMAP A11)"
-DATASET_NOT_PORTED = "--dataset needs data/catalog.py, which is not ported yet (ROADMAP A12)"
+DATASET_NOT_PORTED = "--dataset needs data/catalog.py, which is not ported yet (ROADMAP §A.3)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -93,9 +96,10 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--output", default="prediction.png")
     d.add_argument("--thresh", type=float, default=0.5)
     d.add_argument("--classes", default=None,
-                   help="comma-separated class names (GLIP-KNOW detection); not ported yet")
+                   help="comma-separated class names (GLIP-KNOW detection)")
     d.add_argument("--knowledge-file", default=None,
-                   help="GLIPKNOW knowledge json for --classes; not ported yet")
+                   help="GLIPKNOW knowledge json expanding --classes into "
+                   "knowledge-augmented captions (the config's knowledge settings)")
 
     s = sub.add_parser("serve", help="launch the gradio grounding webui (not ported yet)")
     s.add_argument("--config", default=None)
@@ -324,12 +328,11 @@ def cmd_predict(args) -> dict:
     from lpi_tpu_torch.config import load_config
     from lpi_tpu_torch.continual.grounding_learner import GroundingLearner
     from lpi_tpu_torch.core.checkpoint import SessionCheckpointer
+    from lpi_tpu_torch.data.knowledge import load_knowledge_file
     from lpi_tpu_torch.serve.predictor import GroundingPredictor, draw_predictions
 
-    if args.classes:
-        raise SystemExit(CLASSES_NOT_PORTED)
-    if not args.caption:
-        raise SystemExit("predict needs a caption")
+    if not (args.classes or args.caption):
+        raise SystemExit("predict needs a caption or --classes")
     gcfg = load_config(args.config).grounding
     learner = GroundingLearner(gcfg, device=args.device)
     if args.checkpoint_dir:
@@ -339,7 +342,15 @@ def cmd_predict(args) -> dict:
                                    atss_cfg=gcfg.atss, device=args.device)
     image = np.asarray(Image.open(args.image).convert("RGB"))
     with deterministic():
-        result = predictor.predict(image, args.caption)
+        if args.classes:
+            know = load_knowledge_file(args.knowledge_file) if args.knowledge_file else None
+            kc = gcfg.knowledge
+            result = predictor.predict_classes(
+                image, [c.strip() for c in args.classes.split(",") if c.strip()],
+                knowledge=know, knowledge_type=kc.knowledge_type, gpt3_num=kc.gpt3_num,
+                wiki_and_gpt3=kc.wiki_and_gpt3, agg_type=kc.lan_feature_agg_type)
+        else:
+            result = predictor.predict(image, args.caption)
     draw_predictions(image, result).save(args.output)
     print(json.dumps({
         "entities": result["entities"],

@@ -7,9 +7,10 @@
                 -> ATSS losses (x0.8) + 0.1 x alignment + 0.1 x task loss
 
 The train `forward` (one task's prompts), `grounding_aux_losses`, the eval
-`forward_tasks` and `extract_features` are ported, with both FPN variants
-(plain and GroupNorm) and both deformable-conv routes of the head
-(`deform_impl` "pallas" and "fused"); `forward_knowledge` is not yet. The
+`forward_tasks`, GLIP-KNOW's `forward_knowledge` and `extract_features`
+are ported, with both FPN variants (plain and GroupNorm) and every head
+variant (`models/glip/vldyhead.py`); with `dyhead.early_fuse` the head
+reads the language hidden states and carries a BERT layer a tower. The
 pool follows `prompt_type` in the JAX package's order: "lpi" or "linear"
 the CP-factorised pool; "maple" (or `interact_type="maple"`) MaPLe's
 coupled prompts, which the encoder writes over the tokens it would add to;
@@ -29,7 +30,8 @@ from lpi_tpu_torch.models.glip.anchors import concat_anchors
 from lpi_tpu_torch.models.glip.fpn import FPN
 from lpi_tpu_torch.models.glip.fused import FusedDualEncoder
 from lpi_tpu_torch.models.glip.vldyhead import TunableLinear, VLDyHead
-from lpi_tpu_torch.models.layers import lecun_normal_, normal_, truncated_normal_, uniform_
+from lpi_tpu_torch.models.layers import (lecun_normal_, normal_, truncated_normal_, uniform_,
+                                         xavier_uniform_)
 from lpi_tpu_torch.prompts.pools import DecomposedPromptPool, MaPLePromptPool, NormalPromptPool
 
 
@@ -57,16 +59,16 @@ class GroundedVLModel(nn.Module):
         self.fpn = FPN(self.encoder.swin.dims[-3:], c.dyhead.channels, dtype,
                        use_gn=c.fpn_use_gn)
         self.head = VLDyHead(c.dyhead, lang_dim=c.bert.hidden_size, num_anchors=1,
-                             dtype=dtype)
+                             dtype=dtype, bert_cfg=c.bert if c.dyhead.early_fuse else None)
         self.tunable_linear = (TunableLinear(c.bert.hidden_size)
                                if c.dyhead.add_linear_layer else None)
         self.prompts = prompts
         self._anchor_cache = {}
 
-    def _head_flat(self, feats, embedded, masks, B):
+    def _head_flat(self, feats, embedded, masks, hidden, B):
         if self.tunable_linear is not None:
             embedded = self.tunable_linear(embedded)
-        out = self.head(feats, embedded, masks)
+        out = self.head(feats, embedded, masks, hidden)
         anchors, counts = self._anchors(tuple((f.shape[1], f.shape[2]) for f in feats),
                                         embedded.device)
         return {
@@ -99,7 +101,7 @@ class GroundedVLModel(nn.Module):
             images, input_ids, attention_mask, vis_p, txt_p, task_id,
             num_pooled_layers=self.cfg.bert.num_pooled_layers)
         flat = self._head_flat(self.fpn(outs), language["embedded"], attention_mask,
-                               images.shape[0])
+                               language["hidden"], images.shape[0])
         return flat, language, vis_p, txt_p
 
     def forward_tasks(self, images, input_ids, attention_mask, task_ids):
@@ -113,8 +115,46 @@ class GroundedVLModel(nn.Module):
             num_pooled_layers=self.cfg.bert.num_pooled_layers)
         feats = self.fpn(outs)
         flat = self._head_flat(feats, language["embedded"], attention_mask,
-                               images.shape[0])
+                               language["hidden"], images.shape[0])
         return flat, language
+
+    def forward_knowledge(self, images, class_input_ids, class_attention_mask,
+                          agg_type: str = "first"):
+        """GLIP-KNOW's parallel-language detection forward. The class
+        captions `class_input_ids` / `class_attention_mask` [N_cls + 1, L]
+        (the last row the empty [NoObj] caption) are encoded once, without
+        prompts, beside a dummy [N, 64, 64, 3] image batch that the lockstep
+        encoder needs, and aggregated to one vector a class ("first": the
+        CLS token; "mean": the mask-weighted mean). The class axis then
+        plays the token axis in the head, broadcast over the images, with
+        the [NoObj] slot masked out. images [B, H, W, 3] NHWC; ->
+        (flat head outputs, language dict)."""
+        c = self.cfg
+        N = class_input_ids.shape[0]
+        B = images.shape[0]
+        dev = images.device
+        dummy = torch.zeros((N, 64, 64, 3), dtype=images.dtype, device=dev)
+        lang, _ = self.encoder(dummy, class_input_ids, class_attention_mask, None, None, 0,
+                               num_pooled_layers=c.bert.num_pooled_layers)
+        if agg_type == "first":
+            agg_emb = lang["embedded"][:, 0]
+            agg_hid = lang["hidden"][:, 0]
+        elif agg_type == "mean":
+            m = class_attention_mask[..., None].to(lang["hidden"].dtype)
+            agg_emb = lang["aggregate"]  # already the masked mean of the embeddings
+            agg_hid = (lang["hidden"] * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
+        else:
+            raise ValueError(f"unsupported lan_feature_agg_type {agg_type!r}")
+        embedded = agg_emb[None].expand(B, N, agg_emb.shape[-1])
+        hidden = agg_hid[None].expand(B, N, agg_hid.shape[-1])
+        masks = torch.ones((B, N), dtype=class_attention_mask.dtype, device=dev)
+        masks[:, -1] = 0  # [NoObj]
+        ids = torch.zeros((B, 4), dtype=torch.long, device=dev)
+        ones = torch.ones((B, 4), dtype=torch.float32, device=dev)
+        _, outs = self.encoder(images, ids, ones, None, None, 0)
+        flat = self._head_flat(self.fpn(outs), embedded, masks, hidden, B)
+        return flat, {"aggregate": None, "embedded": embedded, "masks": masks,
+                      "hidden": hidden}
 
     def extract_features(self, images) -> torch.Tensor:
         """Frozen-backbone features for task keys: promptless forward, last
@@ -159,8 +199,9 @@ def init_parameters(model: GroundedVLModel, generator: torch.Generator) -> None:
     N(0, 0.02) cut at +-2 (Flax's `truncated_normal`), the prompt pool's
     leaves as its `init_leaf_` draws them, interaction factors
     U(+-1/sqrt(rank)), the head's convs N(0, 0.01) with the
-    prior-probability bias on cls_logits and bias0, and the zero-init
-    tunable linear."""
+    prior-probability bias on cls_logits and bias0, the zero-init
+    tunable linear, and early fusion's projections xavier-uniform with
+    their layer scales at 1 / num_convs."""
     c = model.cfg
     prior = VLDyHead.prior_bias(c.dyhead)
     bound = 1.0 / math.sqrt(c.lpi.interact_rank)
@@ -184,6 +225,10 @@ def init_parameters(model: GroundedVLModel, generator: torch.Generator) -> None:
             normal(p, 0.02)
         elif leaf == "relative_position_bias_table":
             truncated(p, 0.02)
+        elif name.startswith("head.fuses.") and leaf in ("gamma_v", "gamma_l"):
+            p.fill_(1.0 / c.dyhead.num_convs)
+        elif name.startswith("head.fuses.") and leaf == "weight" and p.dim() == 2:
+            xavier_uniform_(p, generator)
         elif name == "tunable_linear.weight":
             p.zero_()
         elif name == "head.scales":

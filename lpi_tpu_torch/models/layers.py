@@ -30,6 +30,11 @@ def uniform_(p: torch.Tensor, bound: float, generator: torch.Generator) -> None:
     p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
 
 
+def xavier_uniform_(p: torch.Tensor, generator: torch.Generator) -> None:
+    """Flax's `xavier_uniform` for a Linear weight [out, in]."""
+    uniform_(p, math.sqrt(6.0 / (p.shape[0] + p.shape[1])), generator)
+
+
 def truncated_normal_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
     """Fill `p` with std times a standard normal cut at +-2, by the inverse
     CDF (Flax `truncated_normal`)."""

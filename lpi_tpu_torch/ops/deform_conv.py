@@ -1,6 +1,8 @@
-"""Deformable 3x3 convs, NHWC, by two routes (counterparts of
-`lpi_tpu/ops/deform_conv.py:deform_conv2d_pallas` and
-`deform_conv2d_fused`).
+"""Deformable 3x3 convs, NHWC, by three routes (counterparts of
+`lpi_tpu/ops/deform_conv.py:deform_conv2d_pallas`, `deform_conv2d_fused`
+and `deform_conv2d`). The window form keeps the name `deform_conv2d`; the
+JAX package's `deform_conv2d`, the gather form, is `deform_conv2d_exact`
+here.
 
 * `deform_conv2d`, matmul first (`deform_impl` "pallas", "fast",
   "fast_scan"): sampling is linear, so each tap's matmul commutes with it,
@@ -14,17 +16,26 @@
   (`ops/fused_deform_kernel.py:fused_taps`), fp32 throughout, stride 2
   native.
 
-Both are `torch.autograd.Function`s whose backward is a kernel too.
-Offsets are clamped to +-max_offset and borders are zero-padded, exactly as
-in the JAX package; the clamp is written as `ops/clip.py:clip`, whose
-gradient at exactly +-max_offset is 0.5 as `jnp.clip`'s is
-(`Tensor.clamp` passes 1 there).
+* `deform_conv2d_exact`, the gather form (`deform_impl="exact"`): one tap
+  at a time, a bilinear gather (`ops/bilinear.py`) of the fp32 features at
+  the shifted points into a [B, Ho, Wo, C] map, gated, then a [C, Cout]
+  product, accumulated in fp32. Offsets are not clamped and the border
+  follows ROIAlign's convention, so it differs from the other two at the
+  border by design. The JAX package computes it outside any Pallas kernel:
+  plain torch ops here, no CUDA kernel.
+
+The first two are `torch.autograd.Function`s whose backward is a kernel
+too. Their offsets are clamped to +-max_offset and borders are
+zero-padded, exactly as in the JAX package; the clamp is written as
+`ops/clip.py:clip`, whose gradient at exactly +-max_offset is 0.5 as
+`jnp.clip`'s is (`Tensor.clamp` passes 1 there).
 """
 
 from __future__ import annotations
 
 import torch
 
+from lpi_tpu_torch.ops.bilinear import bilinear_sample
 from lpi_tpu_torch.ops.clip import clip
 from lpi_tpu_torch.ops.deform_window_kernel import window_taps
 from lpi_tpu_torch.ops.fused_deform_kernel import fused_taps
@@ -95,6 +106,43 @@ def deform_conv2d_fused(
     oy, ox, gk = _offsets_and_gate(features, offsets, mask, stride, K, m)
     w = weights.float().reshape(K, C, Cout).contiguous()
     out = fused_taps(features.float().contiguous(), oy, ox, gk, w, m, kw, stride)
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(features.dtype)
+
+
+def deform_conv2d_exact(
+    features: torch.Tensor,  # [B, H, W, C]
+    offsets: torch.Tensor,  # [B, Ho, Wo, 2*K] (dy, dx interleaved per tap)
+    weights: torch.Tensor,  # [kh, kw, C, Cout]
+    bias: torch.Tensor | None = None,  # [Cout]
+    mask: torch.Tensor | None = None,  # [B, Ho, Wo, K] pre-sigmoid (DCNv2)
+    stride: int = 1,
+) -> torch.Tensor:
+    """Gather-form deformable conv, 'same' padding, any stride, fp32 inside;
+    output in the features' dtype. Tap k samples at (y * stride + ky - 1 +
+    dy_k, x * stride + kx - 1 + dx_k)."""
+    B, H, W, C = features.shape
+    kh, kw, _, Cout = weights.shape
+    K = kh * kw
+    Ho = (H + stride - 1) // stride
+    Wo = (W + stride - 1) // stride
+    dev = features.device
+    base_y = (torch.arange(Ho, device=dev) * stride).float()
+    base_x = (torch.arange(Wo, device=dev) * stride).float()
+    off = offsets.reshape(B, Ho, Wo, K, 2).float()
+    gate = torch.sigmoid(mask.float()) if mask is not None else None
+    w = weights.float().reshape(K, C, Cout)
+    feats32 = features.float()
+    out = torch.zeros((B, Ho, Wo, Cout), dtype=torch.float32, device=dev)
+    for k in range(K):
+        ky, kx = k // kw - (kh - 1) // 2, k % kw - (kw - 1) // 2
+        sy = (base_y[:, None] + ky) + off[..., k, 0]  # [B, Ho, Wo]
+        sx = (base_x[None, :] + kx) + off[..., k, 1]
+        sampled = bilinear_sample(feats32, sy, sx)  # [B, Ho, Wo, C]
+        if gate is not None:
+            sampled = sampled * gate[..., k, None]
+        out = out + torch.matmul(sampled, w[k])
     if bias is not None:
         out = out + bias.float()
     return out.to(features.dtype)

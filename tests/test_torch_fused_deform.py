@@ -232,5 +232,10 @@ def test_vldyhead_fused_matches_jax(rng):
 
 
 def test_exact_deform_impl_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        VLDyHead(tc.DyHeadConfig(num_convs=1, channels=16, deform_impl="exact"), lang_dim=16)
+    """Named when the head refused "exact". It is ported now, held to the
+    JAX package in `tests/test_torch_head_exact.py`: the head builds with
+    it, and a route that neither package names is refused."""
+    head = VLDyHead(tc.DyHeadConfig(num_convs=1, channels=16, deform_impl="exact"), lang_dim=16)
+    assert head.towers[0].conv_down.deform_impl == "exact"
+    with pytest.raises(ValueError, match="deform_impl"):
+        VLDyHead(tc.DyHeadConfig(num_convs=1, channels=16, deform_impl="gather"), lang_dim=16)

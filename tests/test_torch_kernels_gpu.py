@@ -843,3 +843,99 @@ def test_captured_request_equals_eager(card):
                           for e, s, b in zip(r["entities"], r["scores"], r["boxes"]))
         assert rows(got) == rows(want)
     assert len(preds[1]._graphs) == 2 and not preds[0]._graphs
+
+
+# ---- early fusion and GLIP-KNOW's detection mode ------------------------------
+def _held(ours, theirs, rel=1e-4, atol=3e-3):
+    """The repo's bar: relative Frobenius error <= rel plus an absolute cap."""
+    ours, theirs = ours.double().cpu(), theirs.double().cpu()
+    assert (ours - theirs).norm() <= rel * max(theirs.norm(), 1e-6)
+    assert (ours - theirs).abs().max() <= atol
+
+
+def _early_fused(device):
+    """The gate's config (fp32, 16 channels, 64 px) with early fusion (a
+    VLFuse at embed 32 over 4 heads and a BERT layer before each tower),
+    seeded weights, on `device`."""
+    import dataclasses
+
+    from lpi_tpu_torch.bench import gate_grounding_config
+    from lpi_tpu_torch.models.glip.grounding import GroundedVLModel, init_parameters
+
+    cfg = gate_grounding_config()
+    cfg = dataclasses.replace(cfg, dyhead=dataclasses.replace(
+        cfg.dyhead, early_fuse=True, fuse_embed_dim=32, fuse_heads=4))
+    model = GroundedVLModel(cfg)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    return cfg, model.to(device).eval()
+
+
+def test_early_fusion_forward_card_matches_cpu(card):
+    """`forward_tasks` of the early-fused model in fp32, TF32 off, on the
+    card (window kernels) and on the CPU (their plain versions): head
+    outputs and hidden states at the repo's bar."""
+    from lpi_tpu_torch.continual.keys import exact_fp32
+    from lpi_tpu_torch.data.bert_tokenizer import BertTokenizer
+
+    rng = np.random.RandomState(0)
+    images = torch.from_numpy(rng.randn(2, 64, 64, 3).astype(np.float32) * 50)
+    ids, mask, _ = BertTokenizer(max_len=16, vocab_size=512)(["a red ball", "two dogs on a mat"])
+    outs = []
+    for device in ("cuda", "cpu"):
+        cfg, model = _early_fused(device)
+        tdk.reset_launch_counts()
+        with torch.no_grad(), exact_fp32():
+            flat, language = model.forward_tasks(
+                images.to(device), torch.from_numpy(ids).long().to(device),
+                torch.from_numpy(mask).to(device), torch.tensor([1, 2], device=device))
+        outs.append((flat, language))
+        if device == "cuda":
+            assert tdk.window_accumulate_taps_inpad.launches > 0
+    (card_flat, card_lang), (cpu_flat, cpu_lang) = outs
+    for key in ("bbox_pred", "centerness", "dot_logits"):
+        _held(card_flat[key], cpu_flat[key])
+    _held(card_lang["hidden"], cpu_lang["hidden"])
+
+
+@pytest.mark.parametrize("agg", ["first", "mean"])
+def test_knowledge_forward_card_matches_cpu_and_captured_request_equals_eager(card, agg):
+    """`forward_knowledge` of the early-fused model in fp32 on the card and
+    on the CPU at the repo's bar; then `predict_classes` captured and
+    eager on the card: the same detections over two requests (the second a
+    replay), one graph."""
+    import dataclasses
+
+    from lpi_tpu_torch.continual.keys import exact_fp32
+    from lpi_tpu_torch.data.bert_tokenizer import BertTokenizer
+    from lpi_tpu_torch.serve.predictor import GroundingPredictor
+
+    tok = BertTokenizer(max_len=16, vocab_size=512)
+    ids, mask, _ = tok(["cat: a small feline.", "dog", "bus", ""])
+    rng = np.random.RandomState(1)
+    images = torch.from_numpy(rng.randn(1, 64, 64, 3).astype(np.float32) * 50)
+    outs = []
+    for device in ("cuda", "cpu"):
+        cfg, model = _early_fused(device)
+        with torch.no_grad(), exact_fp32():
+            flat, _ = model.forward_knowledge(images.to(device),
+                                              torch.from_numpy(ids).long().to(device),
+                                              torch.from_numpy(mask).to(device), agg)
+        outs.append(flat)
+    for key in ("bbox_pred", "centerness", "dot_logits"):
+        _held(outs[0][key], outs[1][key])
+    cfg, model = _early_fused("cuda")
+    atss = dataclasses.replace(cfg.atss, inference_thresh=0.0)
+    preds = [GroundingPredictor(model, None, tok, image_size=64, score_thresh=0.0,
+                                atss_cfg=atss, device="cuda", eager=eager)
+             for eager in (True, False)]
+    image = rng.randint(0, 256, size=(48, 80, 3)).astype(np.uint8)
+    for _ in range(2):
+        want, got = (p.predict_classes(image, ["cat", "dog", "bus"], agg_type=agg)
+                     for p in preds)
+        assert len(got["boxes"]) == len(want["boxes"]) > 0
+
+        def rows(r):
+            return sorted((e, float(s), tuple(map(float, b)))
+                          for e, s, b in zip(r["entities"], r["scores"], r["boxes"]))
+        assert rows(got) == rows(want)
+    assert len(preds[1]._graphs) == 1 and not preds[0]._graphs
