@@ -174,6 +174,23 @@ full width with seeded weights:
        over it with the offset convs scaled, read at `honest_offsets`
        between, each the largest of the convs' recorded shares.
 
+The distributed steps (`lpi_tpu_torch.core.{dist,mesh}`), in child
+processes started by `lpi_tpu_torch.dryrun.run_world`, so that no process
+group touches the other phases:
+
+   15. 15a: one NCCL rank on the card, a (1, 1) (data, model) mesh, the
+       retrieval step at `RetrievalConfig()` (b64, task 1) 1 + 10 steps a
+       mode: a learner without a mesh and one on the mesh (its collectives
+       inside the graph), each eager and captured, all four equal in bits,
+       no deform kernel launched; 15b: the same for the grounding step at
+       `GroundingConfig()` (b4, "pallas", `honest_offsets`, 1 + 5 steps),
+       54 / 24 / 54 / 24 window launches a step by counter and by kernel
+       name in a profiled call; each mode's median, busy share and peak
+       memory side by side; 15c: with two cards, both steps on 2 NCCL
+       ranks (global b64 and b4) against the one-process runs of 15a and
+       15b at relative Frobenius 1e-4 on each loss and pool leaf; with one
+       card, a line that says it did not run and why.
+
 Each phase drops its learners and predictors, and with them their graphs'
 memory pools, before the next.
 
@@ -2238,6 +2255,198 @@ def variants_phase(dk, fk, tok, records):
                     "host_calls": calls, "launches": n, "per_call_by_name": per_call[name]}
 
 
+# ---- phase 15: the distributed steps (a process group, a mesh) --------------
+MESH_RETRIEVAL_STEPS, MESH_GROUNDING_STEPS = 10, 5
+
+
+def mesh_steps(dk, fk, learner, make_step, batch, steps, mode, before, what):
+    """1 + `steps` steps of `make_step(eager)` from the pools `before`, in
+    `mode` ("eager" or "captured"): the losses (finite), the pools after,
+    the launch counters, the median step, peak memory and one profiled
+    step."""
+    with torch.no_grad():
+        for name, p in learner.pools.items():
+            p.copy_(before[name])
+    step = make_step(mode == "eager")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(dk, fk)
+    times, losses = [], []
+    for i in range(1 + steps):
+        if i == 1 and mode == "eager":
+            reset_counts(dk, fk)
+        t = time.perf_counter()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append({k: v.item() for k, v in metrics.items()})
+        for k, v in losses[-1].items():
+            if not np.isfinite(v):
+                raise AssertionError(f"{what} step {i} ({mode}): {k} = {v}")
+    peak = torch.cuda.max_memory_allocated()
+    launches = launch_counts(dk, fk)
+    med = statistics.median(times[1:])
+    log(f"{what} ({mode}) on {card_line()}: median {med:.3f} ms over {steps} steps after the "
+        f"first ({times[0]:.3f} ms); " + ", ".join(f"{k} {v:.6f}" for k, v in losses[-1].items()))
+    pools = {n: p.detach().cpu().numpy() for n, p in learner.pools.items()}
+    kernels, stats = _profile(lambda: step(batch), f"{what} step ({mode})")
+    return dict(losses=losses, pools=pools, med=med, peak=peak, stats=stats,
+                launches=launches, kernels=kernels)
+
+
+def equal_bits(a, b, what):
+    """Every step's metrics and every pool leaf of two runs equal in bits."""
+    unequal = [f"step {i} {k}" for i, (x, y) in enumerate(zip(a["losses"], b["losses"]))
+               for k in x if not np.float64(x[k]) == np.float64(y[k])]
+    unequal += [n for n in a["pools"] if not np.array_equal(a["pools"][n], b["pools"][n])]
+    if unequal:
+        raise AssertionError(f"{what}: differ in bits at {unequal}")
+    log(f"{what}: equal in bits, {len(a['losses'])} steps' metrics and {len(a['pools'])} "
+        f"pool leaves")
+
+
+def held_to(run, ref, what, rel=1e-4):
+    """Each step's losses and each pool leaf of `run` against `ref` within
+    relative Frobenius `rel` (the repo's bar; NCCL over several ranks
+    promises no order of its sums)."""
+    errs = {f"step {i} {k}": rel_frob(np.float64(a[k]), np.float64(b[k]))
+            for i, (a, b) in enumerate(zip(run["losses"], ref["losses"])) for k in b}
+    errs.update({n: rel_frob(run["pools"][n].astype(np.float64),
+                             ref["pools"][n].astype(np.float64)) for n in ref["pools"]})
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    log(f"{what}: largest relative Frobenius {worst[1]:.3e} at {worst[0]} (bar {rel}) over "
+        f"{len(errs)} values")
+    if not worst[1] <= rel:
+        raise AssertionError(f"{what}: {worst[0]} off by {worst[1]:.3e}")
+
+
+def mesh_table(runs, what, batch):
+    """The medians of the runs side by side, with busy shares and peaks."""
+    log(f"{what} on {card_line()}: " + "; ".join(
+        f"{mode} median {r['med']:.3f} ms ({1e3 * batch / r['med']:.3f} samples/s), device "
+        f"busy {100 * r['stats']['busy'] / r['stats']['wall']:.1f}% of a profiled step, peak "
+        f"{r['peak'] / 2**30:.3f} GiB" for mode, r in runs.items()))
+
+
+def mesh_path(dk, fk, kind, mesh, ref=None):
+    """15a ("retrieval": `RetrievalConfig()`, b64) or 15b ("grounding":
+    `GroundingConfig()`, b4, "pallas", `honest_offsets`), full width, task
+    1, under deterministic algorithms. One rank (`ref` None): a learner
+    without a mesh and one on the mesh, each eager and captured, 1 + steps
+    a mode from the same seeded start, all four equal in bits; the
+    launches (none for retrieval; 54 / 24 / 54 / 24 a grounding step by
+    the counters and, in a profiled replay, by kernel name). More ranks:
+    the mesh's runs, eager and captured, each rank on its rows of the same
+    global batch, held to `ref`, the one-process run. -> the one-process
+    run, as numpy."""
+    from lpi_tpu_torch.bench import deterministic, honest_offsets, retrieval_inputs
+    from lpi_tpu_torch.config import GroundingConfig, RetrievalConfig
+    from lpi_tpu_torch.continual.grounding_learner import GroundingLearner
+    from lpi_tpu_torch.continual.learner import RetrievalLearner
+    from lpi_tpu_torch.data.bert_tokenizer import BertTokenizer
+    from lpi_tpu_torch.data.grounding import synthetic_grounding_task
+    from lpi_tpu_torch.graphs import WARMUP
+
+    if kind == "retrieval":
+        cfg, steps, phase, size = RetrievalConfig(), MESH_RETRIEVAL_STEPS, "15a", 64
+        batch = retrieval_inputs(cfg)
+    else:
+        cfg, steps, phase, size = (GroundingConfig(batch_size=TRAIN_BATCH),
+                                   MESH_GROUNDING_STEPS, "15b", TRAIN_BATCH)
+        tok = BertTokenizer(max_len=cfg.bert.max_query_len, vocab_size=cfg.bert.vocab_size)
+        batch = next(synthetic_grounding_task(TRAIN_TASK, TRAIN_BATCH, cfg.image_size, tok,
+                                              max_boxes=cfg.max_boxes).batches(TRAIN_BATCH))
+
+    def build(m):
+        gen = torch.Generator().manual_seed(0)
+        if kind == "retrieval":
+            learner = RetrievalLearner(cfg, generator=gen, device=mesh.device, mesh=m)
+            make = (lambda eager: learner.make_train_step(
+                TRAIN_TASK, steps_per_epoch=100, epochs=cfg.epochs, eager=eager))
+        else:
+            learner = GroundingLearner(cfg, generator=gen, device=mesh.device, mesh=m)
+            honest_offsets(learner.model)
+            make = (lambda eager: learner.make_step(
+                TRAIN_TASK, steps_per_epoch=steps, epochs=cfg.epochs_per_task, eager=eager))
+        return learner, make, {n: p.detach().clone() for n, p in learner.pools.items()}
+
+    if ref is None:
+        plan = [("eager, no mesh", None, "eager"), ("captured, no mesh", None, "captured"),
+                ("eager", mesh, "eager"), ("captured", mesh, "captured")]
+    else:
+        plan = [(f"{mesh.dp} ranks", mesh, "eager"),
+                (f"{mesh.dp} ranks captured", mesh, "captured")]
+    runs = {}
+    with deterministic():
+        for key, m, mode in plan:
+            if mode == "eager":  # a captured run trains the eager run's learner again
+                learner, make, before = build(m)
+            run = mesh_steps(dk, fk, learner, make, batch, steps, mode, before,
+                             f"{phase} {kind} {key}")
+            calls = steps if mode == "eager" else WARMUP + 1
+            want = (expected_counts(dk, fk, cfg, calls, train=True) if kind == "grounding"
+                    else dict.fromkeys(run["launches"], 0))
+            if run["launches"] != want:
+                raise AssertionError(f"{phase} {key}: launches {run['launches']}, want {want} "
+                                     f"over {calls} host calls")
+            if kind == "grounding":
+                check_replay_launches(dk, fk, cfg, run["kernels"], True,
+                                      f"{phase} grounding {key}")
+            runs[key] = run
+    if ref is None:
+        equal_bits(runs["eager, no mesh"], runs["eager"],
+                   f"{phase} {kind}: mesh (1, 1) eager against no mesh eager")
+        equal_bits(runs["eager"], runs["captured"],
+                   f"{phase} {kind}: mesh (1, 1) captured against mesh eager")
+        equal_bits(runs["captured, no mesh"], runs["captured"],
+                   f"{phase} {kind}: mesh (1, 1) captured against no mesh captured")
+    else:
+        for key, run in runs.items():
+            held_to(run, ref, f"{phase} {kind}: {key} against one process")
+    mesh_table(runs, f"{phase} {kind} step (global batch {size})", size)
+    out = runs[plan[0][0]]
+    del learner, runs
+    torch.cuda.empty_cache()
+    return {"losses": out["losses"], "pools": out["pools"]}
+
+
+def _mesh_rank(refs=None):
+    """Phase 15 on each rank of an NCCL group, one rank a card: with one
+    rank, 15a and 15b on a (1, 1) mesh (its collectives inside the steps);
+    with more, 15c, held to `refs` (15a's and 15b's one-process runs). ->
+    the one-process runs."""
+    from lpi_tpu_torch.config import MeshConfig
+    from lpi_tpu_torch.core import mesh as mesh_lib
+    from lpi_tpu_torch.ops import deform_window_kernel as dk
+    from lpi_tpu_torch.ops import fused_deform_kernel as fk
+
+    mesh = mesh_lib.make_mesh(MeshConfig())
+    log(f"phase 15: {mesh}, backend {torch.distributed.get_backend()}, the steps eager and "
+        f"captured")
+    out = {}
+    for kind, phase in (("retrieval", "15a"), ("grounding", "15b")):
+        t = time.perf_counter()
+        out[kind] = mesh_path(dk, fk, kind, mesh, None if refs is None else refs[kind])
+        log(f"phase {'15c' if refs else phase} ({kind}): {time.perf_counter() - t:.3f} s")
+    return out
+
+
+def mesh_phase():
+    """Phase 15: the distributed steps in child processes (as the gates run),
+    so that no process group touches the other phases: 15a and 15b on one
+    rank (NCCL, the card), then 15c on two ranks when the machine has two
+    cards."""
+    from lpi_tpu_torch.dryrun import run_world
+
+    refs = run_world(_mesh_rank, 1, "gpu", timeout=900)[0]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        run_world(_mesh_rank, 2, "gpu", (refs,), timeout=900)
+    else:
+        log(f"phase 15c did not run: it needs 2 cards, this machine has {cards} "
+            f"({card_line()})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2369,6 +2578,11 @@ def main() -> int:
     t = time.perf_counter()
     variants_phase(dk, fk, tok, records)
     log(f"phase 14: {time.perf_counter() - t:.3f} s")
+
+    # ---- the distributed steps: a process group, a mesh ------------------
+    t = time.perf_counter()
+    mesh_phase()
+    log(f"phase 15: {time.perf_counter() - t:.3f} s")
 
     for rec in records.values():
         kinds = rec.pop("bound_kinds")

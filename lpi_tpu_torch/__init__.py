@@ -9,5 +9,6 @@ nor `lpi_tpu`. Entry points: `lpi_tpu_torch.serve.predictor.GroundingPredictor`
 `lpi_tpu_torch.continual.learner.RetrievalLearner` (continual retrieval:
 SliNet, CLIP ViT-B/16 with LPI prompts), `lpi_tpu_torch.bench`
 (`bench_retrieval` and the two quality gates) and the command line,
-`python -m lpi_tpu_torch.cli.main`.
+`python -m lpi_tpu_torch.cli.main` (its `train` also under torchrun, one
+rank of a data- and tensor-parallel mesh: `lpi_tpu_torch.core.mesh`).
 """

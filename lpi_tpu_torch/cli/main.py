@@ -3,6 +3,7 @@ continual retrieval and grounding training, evaluation from saved
 sessions, the grounding demo and result post-processing.
 
     python -m lpi_tpu_torch.cli.main train --synthetic --sessions 2 --epochs 1
+    torchrun --nproc-per-node 2 -m lpi_tpu_torch.cli.main train --synthetic
     python -m lpi_tpu_torch.cli.main train-grounding --synthetic --tasks 2 --epochs 1
     python -m lpi_tpu_torch.cli.main eval-all --synthetic --grounding \\
         --checkpoint-dir checkpoints_grounding
@@ -22,6 +23,15 @@ evaluation run under `lpi_tpu_torch.bench.deterministic()`, so that a
 session evaluated again from its checkpoint gives the numbers recorded when
 it was trained. `--config` takes the nested-json overrides of
 `lpi_tpu_torch.config.load_config`.
+
+`train` under torchrun (`WORLD_SIZE` set) is one rank of a data- and
+tensor-parallel run: it starts the process group from the environment
+(`core.dist.init_from_env`: NCCL, one card a rank, or gloo with
+`--platform cpu`) and builds the mesh from the config's `mesh` section;
+rank 0 alone writes the log file, `metrics.jsonl`, the checkpoints (the
+frozen base whole, gathered from its tensor-parallel shards) and the
+result json. Every other command, as in the JAX package, builds no mesh:
+under torchrun with more than one rank it refuses, naming the reason.
 
 `predict --classes` runs GLIP-KNOW's detection mode
 (`GroundingPredictor.predict_classes`) with the config's `knowledge`
@@ -46,6 +56,9 @@ NOT_PORTED = {
     "fetch-weights": "fetch-weights (core/fetch.py) is not ported yet (ROADMAP §A.5)",
 }
 DATASET_NOT_PORTED = "--dataset needs data/catalog.py, which is not ported yet (ROADMAP §A.3)"
+ONE_PROCESS = ("{command} runs in one process, as in the JAX package, which builds no mesh "
+               "for it; under torchrun only `train` takes more than one rank "
+               "(WORLD_SIZE={world})")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -209,12 +222,15 @@ def cmd_train(args):
     from lpi_tpu_torch.config import load_config
     from lpi_tpu_torch.continual.learner import RetrievalLearner
     from lpi_tpu_torch.core.checkpoint import SessionCheckpointer
+    from lpi_tpu_torch.core.dist import is_main_process
     from lpi_tpu_torch.core.logging import MetricLogger, save_results_json, setup_logging
+    from lpi_tpu_torch.core.mesh import gather_params
     from lpi_tpu_torch.data.tokenizer import ClipTokenizer
 
     if not args.synthetic and not (args.ann_train and args.ann_val and args.image_root):
         raise SystemExit("need --ann-train/--ann-val/--image-root (or --synthetic)")
-    log = setup_logging(args.output_dir)
+    mesh, main = getattr(args, "mesh", None), is_main_process()
+    log = setup_logging(args.output_dir if main else None)
     rcfg = load_config(args.config).retrieval
     sessions = args.sessions or rcfg.total_sessions
     init_params = None
@@ -224,7 +240,10 @@ def cmd_train(args):
         init_params = load_torch_clip(args.clip_ckpt)
         log.info("loaded CLIP weights from %s", args.clip_ckpt)
     learner = RetrievalLearner(rcfg, task_sim_matrix=_sim(args.task_sim, rcfg.total_sessions),
-                               init_params=init_params, device=args.device)
+                               init_params=init_params, device=args.device, mesh=mesh)
+    if mesh is not None:
+        log.info("rank %d of a %dx%d (data, model) mesh", torch.distributed.get_rank(),
+                 mesh.dp, mesh.mp)
 
     tok = ClipTokenizer()
     size = rcfg.clip.image_resolution
@@ -239,9 +258,9 @@ def cmd_train(args):
         train_sets = [CocoCaptionTrain(args.ann_train, args.image_root, [t], tok,
                                        rcfg.clip.n_ctx) for t in range(sessions)]
 
-    ckpt = SessionCheckpointer(args.checkpoint_dir)
+    ckpt = SessionCheckpointer(args.checkpoint_dir) if main else None
     ml = MetricLogger(jsonl_path=os.path.join(args.output_dir, "metrics.jsonl"),
-                      tensorboard_dir=args.tensorboard_dir)
+                      tensorboard_dir=args.tensorboard_dir) if main else None
     results = {}
     with deterministic():
         for i in range(sessions):
@@ -252,15 +271,21 @@ def cmd_train(args):
             res = learner.evaluate(_retrieval_eval_set(args, rcfg, tok, i), num_tasks=i + 1)
             log.info("eval r_mean=%.2f task_acc=%s", res["summary"]["r_mean"],
                      res["task_id_accuracy"])
-            ml.update(session=i, **metrics, r_mean=res["summary"]["r_mean"],
-                      task_id_acc_visual=res["task_id_accuracy"]["visual"])
             results[i] = {"mscoco": {"i2t": res["i2t"], "t2i": res["t2i"]},
                           "summary": res["summary"],
                           "task_id_accuracy": res["task_id_accuracy"]}
+            # every rank gathers (a collective), rank 0 writes
+            base = gather_params(mesh, learner.frozen, learner.tp_layout) if i == 0 else None
+            if not main:
+                continue
+            ml.update(session=i, **metrics, r_mean=res["summary"]["r_mean"],
+                      task_id_acc_visual=res["task_id_accuracy"]["visual"])
             if i == 0:
-                ckpt.save_base(learner.frozen)
+                ckpt.save_base(base)
             ckpt.save_session(i, learner.pools, learner.visual_keys, learner.textual_keys,
                               results[i])
+    if not main:
+        return None, learner
     ml.close()
     path = save_results_json(results, args.output_dir)
     log.info("results written to %s", path)
@@ -454,14 +479,38 @@ COMMANDS = {"train": cmd_train, "train-grounding": cmd_train_grounding,
             "predict": cmd_predict, "eval": cmd_eval, "eval-all": cmd_eval_all}
 
 
+def _start_group(args):
+    """Under torchrun: `train` starts the process group and builds the
+    config's mesh (`args.mesh`, this rank's `args.device`); any other
+    command refuses more than one rank."""
+    world = int(os.environ["WORLD_SIZE"])
+    if args.command != "train":
+        if world > 1:
+            raise SystemExit(ONE_PROCESS.format(command=args.command, world=world))
+        return
+    from lpi_tpu_torch.config import load_config
+    from lpi_tpu_torch.core.dist import init_from_env
+    from lpi_tpu_torch.core.mesh import make_mesh
+
+    args.device = str(init_from_env(args.platform))
+    args.mesh = make_mesh(load_config(args.config).mesh)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.command in NOT_PORTED:
         raise SystemExit(NOT_PORTED[args.command])
     if args.command == "report":  # host only
         return cmd_report(args)
-    args.device = _device(args.platform)
-    return COMMANDS[args.command](args)
+    if "WORLD_SIZE" in os.environ:
+        _start_group(args)
+    if getattr(args, "mesh", None) is None:
+        args.device = _device(args.platform)
+        return COMMANDS[args.command](args)
+    try:
+        return COMMANDS[args.command](args)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -26,10 +26,12 @@ def _freeze(seq):
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout. One mesh, named axes; collectives ride ICI.
+    """Device-mesh layout (`core.mesh.make_mesh`): the ranks of the process
+    group as one mesh with named axes; collectives ride NCCL (gloo on the
+    CPU).
 
-    `data` shards the batch; `model` is reserved for tensor-parallel layouts
-    of the towers (unused by parity configs but the plumbing supports it).
+    `data` shards the batch; `model` carries the tensor-parallel layouts of
+    the towers (unused by parity configs).
     """
 
     data_axis: str = "data"

@@ -19,6 +19,18 @@ the task keys, runs the eval forward with that task's prompts, postprocesses
 the boxes of the first entity and scores RefExp P@1/5/10 (GIoU >= 0.5) per
 task, with the task-ID accuracy beside it.
 
+With a `core.mesh.Mesh` (`mesh=`), the learner is one rank of a
+data- and tensor-parallel run, as the JAX learner is under its mesh: the
+parameters broadcast from rank 0 and sharded over `model`
+(`core.mesh.shard_params`: Swin's MLP and the fused encoder's BERT
+layers), each rank on its rows of the same global batch, the ATSS
+normalisers (the positives and the centerness targets) summed over `data`
+before they divide, the batch-wide losses reported as their global values,
+and the gradients averaged over `data` before the mask and the clip, so
+the clip sees the global gradient. `extract_features`, `cluster_task` and
+`evaluate` run this rank's rows of each batch that divides over `data`
+and gather them. Over one rank the collectives change no bit.
+
 `restore` loads a `core.checkpoint.SessionCheckpointer` task (the frozen
 base and that task's pools) into the model's own tensors, in place, so a
 step captured before it trains the restored weights; the task keys, which
@@ -39,6 +51,8 @@ from lpi_tpu_torch.continual.common import (AdamState, adamw_apply,  # noqa: F40
                                              adamw_update, clip_by_global_norm, freeze,
                                              restore_in_place, staged_lrs)
 from lpi_tpu_torch.continual.keys import TaskKeys, exact_fp32, infer_task_ids
+from lpi_tpu_torch.core import mesh as mesh_lib
+from lpi_tpu_torch.core.dist import average_gradients, global_mean
 from lpi_tpu_torch.data.grounding import GroundingTaskSet
 from lpi_tpu_torch.eval.refexp import RefExpEvaluator
 from lpi_tpu_torch.graphs import Graphed, captures
@@ -65,11 +79,13 @@ class GroundingLearner:
     """`init_params` is a state_dict (as `bridge.params_from_jax` returns)
     whose entries replace the seeded initial parameters; `generator` seeds
     those (default: `cfg.seed`). Runs on `device`, the card unless asked
-    otherwise."""
+    otherwise; `mesh` makes it one rank of a data- and tensor-parallel run
+    (the mesh's device)."""
 
     def __init__(self, cfg: GroundingConfig, task_sim_matrix: Optional[np.ndarray] = None,
                  init_params: Optional[Mapping[str, torch.Tensor]] = None,
-                 generator: Optional[torch.Generator] = None, device="cuda"):
+                 generator: Optional[torch.Generator] = None, device="cuda",
+                 mesh: Optional[mesh_lib.Mesh] = None):
         self.cfg = cfg
         self.device = torch.device(device)
         model = GroundedVLModel(cfg)
@@ -80,6 +96,11 @@ class GroundingLearner:
             if unexpected:
                 raise KeyError(f"init_params has entries the model lacks: {unexpected[:5]}")
         self.model = model.to(self.device)
+        self.mesh = mesh
+        self.tp_layout = {}
+        if mesh is not None:
+            mesh_lib.replicate(self.model.parameters())
+            self.tp_layout = mesh_lib.shard_params(mesh, self.model)
         self.pools, self.frozen = freeze(self.model, POOL_KEYS)
         T = cfg.total_tasks
         sim = np.eye(T, dtype=np.float32) if task_sim_matrix is None else np.asarray(
@@ -101,18 +122,21 @@ class GroundingLearner:
     def _losses(self, batch: Mapping[str, torch.Tensor], task_id: int):
         """-> (total loss, metrics): the three ATSS terms x
         `proposal_loss_weight`, the auxiliary losses, each zeroed where not
-        finite, and `num_pos`."""
+        finite, and `num_pos`. With a mesh the ATSS terms are this rank's
+        share of the global batch's (normalisers summed over `data`),
+        reported as the global values (`core.dist.global_mean`)."""
         cfg = self.cfg
+        group = None if self.mesh is None else self.mesh.data_group
         flat, _, vis_p, txt_p = self.model(batch["images"], batch["input_ids"],
                                            batch["attention_mask"], task_id)
         det = atss_losses(flat["anchors"], tuple(flat["level_counts"]), flat["bbox_pred"],
                           flat["centerness"], flat["dot_logits"], batch["gt_boxes"],
                           batch["gt_valid"], batch["positive_map"], batch["attention_mask"],
-                          topk=cfg.atss.topk, reg_loss_weight=cfg.atss.reg_loss_weight)
+                          topk=cfg.atss.topk, reg_loss_weight=cfg.atss.reg_loss_weight,
+                          group=group)
         w = cfg.proposal_loss_weight
-        losses = {"loss_reg": w * det["loss_reg"],
-                  "loss_centerness": w * det["loss_centerness"],
-                  "loss_dot_product_token": w * det["loss_dot_product_token"]}
+        losses = {k: w * (det[k] if group is None else global_mean(det[k], group))
+                  for k in ("loss_reg", "loss_centerness", "loss_dot_product_token")}
         vis_all, txt_all = self.model.prompts.all_prompts()
         losses.update(grounding_aux_losses(vis_p, txt_p, vis_all, txt_all, task_id,
                                            self.task_relation, cfg))
@@ -134,6 +158,8 @@ class GroundingLearner:
         total, metrics = self._losses(batch, task_id)
         grads = torch.autograd.grad(total, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        if self.mesh is not None:
+            grads = average_gradients(grads, self.mesh.data_group)
         masks = None
         if masked:
             masks = [(torch.arange(p.shape[0], device=p.device) == task_id).to(p.dtype)
@@ -180,6 +206,7 @@ class GroundingLearner:
             epoch = next(count) // max(steps_per_epoch, 1)
             sess.lr.copy_(lrs[min(epoch, epochs)])
             sess.state.advance()
+            batch = mesh_lib.shard_batch(self.mesh, batch)
             if not capture:
                 return run(self.to_device(batch))
             key = tuple((k, tuple(np.shape(batch[k]))) for k in sorted(_BATCH_DTYPES)
@@ -212,6 +239,7 @@ class GroundingLearner:
                     it = dataset.batches(cfg.batch_size, seed=cfg.seed + n)
                     batch = next(it)
                 state.advance()
+                batch = mesh_lib.shard_batch(self.mesh, batch)
                 metrics = self._step(self.to_device(batch), 0, lr, state,
                                      list(params.values()), masked=False)
         finally:
@@ -243,7 +271,7 @@ class GroundingLearner:
         (TF32 off)."""
         images = torch.as_tensor(np.asarray(images)).to(self.device, torch.float32)
         with torch.no_grad(), exact_fp32():
-            return self.model.extract_features(images)
+            return mesh_lib.over_rows(self.mesh, images, self.model.extract_features)
 
     def cluster_task(self, dataset: GroundingTaskSet) -> None:
         cfg = self.cfg
@@ -276,24 +304,28 @@ class GroundingLearner:
         bs = batch_size or cfg.batch_size
         evaluator = RefExpEvaluator()
         hits = total = 0
+
+        def detect(b):
+            flat, _ = self.model.forward_tasks(b["images"], b["input_ids"],
+                                               b["attention_mask"], b["sel"])
+            A = flat["anchors"].shape[0]
+            return atss_postprocess_batch(
+                flat["anchors"], tuple(int(c) for c in flat["level_counts"]),
+                flat["bbox_pred"], flat["centerness"], flat["dot_logits"],
+                b["positive_map"][:, :1],  # the first entity [B, 1, T]
+                pre_nms_top_n=min(cfg.atss.pre_nms_top_n, A),
+                post_nms_top_n=min(cfg.atss.fpn_post_nms_top_n, A),
+                nms_thresh=cfg.atss.nms_thresh,
+                pre_nms_thresh=cfg.atss.inference_thresh)
+
         for tid, ds in task_sets.items():
             for batch, real, indices in ds.eval_batches(bs):
                 sel = infer_task_ids(self.extract_features(batch["images"]), self.keys)
                 hits += int((sel[:real] == tid).sum())
                 total += real
-                b = self.to_device(batch)
+                b = {**self.to_device(batch), "sel": sel}
                 with torch.no_grad():
-                    flat, _ = self.model.forward_tasks(b["images"], b["input_ids"],
-                                                       b["attention_mask"], sel)
-                    A = flat["anchors"].shape[0]
-                    out = atss_postprocess_batch(
-                        flat["anchors"], tuple(int(c) for c in flat["level_counts"]),
-                        flat["bbox_pred"], flat["centerness"], flat["dot_logits"],
-                        b["positive_map"][:, :1],  # the first entity [B, 1, T]
-                        pre_nms_top_n=min(cfg.atss.pre_nms_top_n, A),
-                        post_nms_top_n=min(cfg.atss.fpn_post_nms_top_n, A),
-                        nms_thresh=cfg.atss.nms_thresh,
-                        pre_nms_thresh=cfg.atss.inference_thresh)
+                    out = mesh_lib.over_rows(self.mesh, b, detect)
                 out = {k: v.cpu().numpy() for k, v in out.items()}
                 for i in range(real):
                     valid = out["valid"][i]

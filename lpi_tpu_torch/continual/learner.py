@@ -35,6 +35,18 @@ values for its shape of work.
 recipe, which the quality gate needs because the repo carries no
 checkpoint.
 
+With a `core.mesh.Mesh` (`mesh=`), the learner is one rank of a
+data- and tensor-parallel run, as the JAX learner is under its mesh: the
+parameters are broadcast from rank 0 and, over the `model` axis, sharded
+Megatron-style (`core.mesh.shard_params`); every rank builds the same
+global batch and takes its rows; the InfoNCE runs over the whole batch
+(`losses.clip_loss.global_clip_loss`, when dp > 1) and the pool
+gradients (all of them in `pretrain`) are averaged over `data` before the
+mask, the decay and the momentum. `cluster_task` and `evaluate` encode
+this rank's rows of each batch that divides over `data` and gather them,
+so every rank holds the same keys and results. Over one rank the
+collectives change no bit.
+
 `restore` loads a `core.checkpoint.SessionCheckpointer` session (the frozen
 base and that session's pools) into the model's own tensors, in place, so a
 step captured before it trains the restored weights; the task keys, which
@@ -55,10 +67,13 @@ from lpi_tpu_torch.continual.common import AdamState, adamw_update, clip_by_glob
     freeze, restore_in_place, staged_lrs
 from lpi_tpu_torch.continual.keys import TaskKeys, exact_fp32, infer_task_ids
 from lpi_tpu_torch.continual.mid import task_relation
+from lpi_tpu_torch.core import mesh as mesh_lib
+from lpi_tpu_torch.core.dist import average_gradients
 from lpi_tpu_torch.data.retrieval import RetrievalEvalSet, RetrievalTrainSet
 from lpi_tpu_torch.eval.retrieval import device_ranks, itm_eval
 from lpi_tpu_torch.graphs import Graphed, captures
-from lpi_tpu_torch.losses.clip_loss import alignment_loss, clip_loss, task_prompt_loss_masked
+from lpi_tpu_torch.losses.clip_loss import (alignment_loss, global_clip_loss,
+                                            task_prompt_loss_masked)
 from lpi_tpu_torch.models.clip.slinet import SliNet, init_parameters
 from lpi_tpu_torch.ops.kmeans import kmeans
 
@@ -76,11 +91,13 @@ class RetrievalLearner:
     """`init_params` is a state_dict (as `bridge.slinet_params_from_jax`
     returns) whose entries replace the seeded initial parameters;
     `generator` seeds those (default: `cfg.seed`). Runs on `device`, the
-    card unless asked otherwise."""
+    card unless asked otherwise; `mesh` makes it one rank of a
+    data- and tensor-parallel run (the mesh's device)."""
 
     def __init__(self, cfg: RetrievalConfig, task_sim_matrix: Optional[np.ndarray] = None,
                  init_params: Optional[Mapping[str, torch.Tensor]] = None,
-                 generator: Optional[torch.Generator] = None, device="cuda"):
+                 generator: Optional[torch.Generator] = None, device="cuda",
+                 mesh: Optional[mesh_lib.Mesh] = None):
         self.cfg = cfg
         self.device = torch.device(device)
         model = SliNet(cfg)
@@ -91,6 +108,11 @@ class RetrievalLearner:
             if unexpected:
                 raise KeyError(f"init_params has entries the model lacks: {unexpected[:5]}")
         self.model = model.to(self.device)
+        self.mesh = mesh
+        self.tp_layout = {}
+        if mesh is not None:
+            mesh_lib.replicate(self.model.parameters())
+            self.tp_layout = mesh_lib.shard_params(mesh, self.model)
         self.pools, self.frozen = freeze(self.model, POOL_KEYS)
         T = cfg.total_sessions
         sim = np.eye(T, dtype=np.float32) if task_sim_matrix is None else task_sim_matrix
@@ -110,13 +132,20 @@ class RetrievalLearner:
                 "token_ids": torch.as_tensor(batch["token_ids"]).to(self.device, torch.long)}
 
     # ------------------------------------------------------------------
+    def _base_loss(self, img, txt, scale):
+        """The batch-global InfoNCE: over this rank's rows against every
+        rank's when the mesh's data axis has more than one rank, else the
+        dense loss (as the JAX learner's `_base_loss`)."""
+        dp = 1 if self.mesh is None else self.mesh.dp
+        return global_clip_loss(img, txt, scale, self.mesh.data_group if dp > 1 else None)
+
     def _losses(self, batch: Mapping[str, torch.Tensor], task_id):
         """-> (total, {base_loss, alignment_loss, task_loss}), each weighted;
         the last two only for "lpi" prompts. `task_id` is an int or a 0-d
         integer tensor on the device."""
         lpi = self.cfg.lpi
         img, txt, vis_p, txt_p, scale = self.model(batch["images"], batch["token_ids"], task_id)
-        losses = {"base_loss": clip_loss(scale * img @ txt.T)}
+        losses = {"base_loss": self._base_loss(img, txt, scale)}
         if lpi.prompt_type == "lpi" and lpi.layer_alignment:
             losses["alignment_loss"] = lpi.alignment_weight * alignment_loss(
                 vis_p, txt_p, lpi.alignment_temperature)
@@ -145,6 +174,8 @@ class RetrievalLearner:
         # zero-shot CLIP's loss reads no pool leaf: no gradient at all
         grads = (torch.autograd.grad(total, params, allow_unused=True) if total.requires_grad
                  else [None] * len(params))
+        if self.mesh is not None:
+            grads = average_gradients(grads, self.mesh.data_group)
         with torch.no_grad():
             for p, g, mask, tr in zip(params, grads, self._masks(task_id), trace):
                 g = torch.zeros_like(p) if g is None else g * mask
@@ -188,6 +219,7 @@ class RetrievalLearner:
         def step(batch):
             epoch = next(count) // max(steps_per_epoch, 1)
             sess.lr.copy_(lrs[min(epoch, epochs)])
+            batch = mesh_lib.shard_batch(self.mesh, batch)
             if not capture:
                 return run(self.to_device(batch))
             key = tuple(tuple(np.shape(batch[k])) for k in ("images", "token_ids"))
@@ -218,9 +250,12 @@ class RetrievalLearner:
                 if batch is None:
                     it = dataset.batches(cfg.batch_size, seed=cfg.seed + n)
                     batch = next(it)
+                batch = mesh_lib.shard_batch(self.mesh, batch)
                 total, losses = self._losses(self.to_device(batch), 0)
                 grads = torch.autograd.grad(total, params, allow_unused=True)
                 grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+                if self.mesh is not None:
+                    grads = average_gradients(grads, self.mesh.data_group)
                 adamw_update(params, clip_by_global_norm(grads, PRETRAIN_CLIP), state, lr, 0.0)
                 total, losses = total.detach(), {k: v.detach() for k, v in losses.items()}
                 metrics = {"total": total, **losses}
@@ -253,13 +288,13 @@ class RetrievalLearner:
         (TF32 off)."""
         images = torch.as_tensor(images).to(self.device, torch.float32)
         with torch.no_grad(), exact_fp32():
-            return self.model.extract_visual(images)
+            return mesh_lib.over_rows(self.mesh, images, self.model.extract_visual)
 
     def extract_textual(self, token_ids) -> torch.Tensor:
         """Frozen promptless text features for the task keys, exact fp32."""
         token_ids = torch.as_tensor(token_ids).to(self.device, torch.long)
         with torch.no_grad(), exact_fp32():
-            return self.model.extract_textual(token_ids)
+            return mesh_lib.over_rows(self.mesh, token_ids, self.model.extract_textual)
 
     def cluster_task(self, dataset: RetrievalTrainSet) -> None:
         """k-means task keys per modality over the session's frozen
@@ -286,25 +321,28 @@ class RetrievalLearner:
         zero_shot = cfg.lpi.prompt_type == "clip"
 
         def encode(batches, dtype, extract, keys, encode_tasks):
+            def rows(x):  # row-wise: this rank's rows with a mesh
+                with exact_fp32():
+                    frozen = extract(x)
+                if zero_shot:
+                    return frozen, torch.zeros(x.shape[0], dtype=torch.long, device=self.device)
+                ids = infer_task_ids(frozen, keys)
+                return encode_tasks(x, ids), ids
+
             feats, sel = [], []
             for x, n in batches:
                 x = torch.as_tensor(x).to(self.device, dtype)
-                frozen = extract(x)
-                if zero_shot:
-                    feats.append(frozen[:n])
-                    sel.append(torch.zeros(n, dtype=torch.long, device=self.device))
-                    continue
-                ids = infer_task_ids(frozen, keys)
                 with torch.no_grad():
-                    feats.append(encode_tasks(x, ids)[:n])
+                    f, ids = mesh_lib.over_rows(self.mesh, x, rows)
+                feats.append(f[:n])
                 sel.append(ids[:n])
             return torch.cat(feats), torch.cat(sel).cpu().numpy()
 
         img_feats, img_sel = encode(eval_set.image_batches(cfg.batch_size), torch.float32,
-                                    self.extract_visual, self.visual_keys,
+                                    self.model.extract_visual, self.visual_keys,
                                     self.model.encode_image_tasks)
         txt_feats, txt_sel = encode(eval_set.text_batches(cfg.eval_text_chunk), torch.long,
-                                    self.extract_textual, self.textual_keys,
+                                    self.model.extract_textual, self.textual_keys,
                                     self.model.encode_text_tasks)
         ranks = device_ranks(img_feats, txt_feats, eval_set.txt2img, eval_set.img2txt)
         res = itm_eval(None, None, eval_set.txt2img, eval_set.img2txt,

@@ -3,6 +3,11 @@
 
 * `clip_loss`: symmetric cross-entropy over a square logits matrix with
   diagonal positives.
+* `global_clip_loss`: the batch-global InfoNCE with the features sharded
+  over a `data` group: each rank's rows against every rank's rows of the
+  other tower, labels offset by the rank, the mean over the ranks (the
+  reference's dormant `local_loss`, which the JAX package runs under
+  `shard_map`).
 * `nt_bxent_loss_masked`: the multi-positive sigmoid contrastive loss over
   the rows and columns marked valid, with the reference's double sigmoid
   (the cosine matrix over the temperature is sigmoided, then fed to
@@ -32,6 +37,31 @@ def clip_loss(logits: torch.Tensor) -> torch.Tensor:
     """Symmetric CE over a square similarity matrix, diagonal positives."""
     labels = torch.arange(logits.shape[0], device=logits.device)
     return 0.5 * (_softmax_xent(logits, labels) + _softmax_xent(logits.T, labels))
+
+
+def global_clip_loss(image_features: torch.Tensor, text_features: torch.Tensor,
+                     logit_scale: torch.Tensor, group=None) -> torch.Tensor:
+    """Batch-global InfoNCE over features [local_b, d] sharded over
+    `group`: both towers' features gathered (`core.dist.gather_rows`),
+    logits [local_b, global_b] each way, labels `rank * local_b + i`, this
+    rank's loss the mean over its rows. The value returned is the mean over
+    the ranks, the global batch's loss; its gradient is this rank's own
+    loss's (`core.dist.global_mean`), so that the pool gradients averaged
+    over `group` are the global loss's. With `group=None`, `clip_loss`
+    over the whole matrix."""
+    if group is None:
+        return clip_loss(logit_scale * image_features @ text_features.T)
+    import torch.distributed as dist
+
+    from lpi_tpu_torch.core.dist import gather_rows, global_mean
+
+    local_b = image_features.shape[0]
+    all_text = gather_rows(text_features, group)
+    all_image = gather_rows(image_features, group)
+    labels = torch.arange(local_b, device=image_features.device) + dist.get_rank(group) * local_b
+    loss = 0.5 * (_softmax_xent(logit_scale * image_features @ all_text.T, labels)
+                  + _softmax_xent(logit_scale * text_features @ all_image.T, labels))
+    return global_mean(loss, group)
 
 
 def _bce_with_logits(z: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

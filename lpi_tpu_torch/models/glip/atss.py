@@ -12,6 +12,14 @@
   sum (times `reg_loss_weight`), centerness BCE / num_pos.
 
 Shapes are static (GTs padded with a validity mask), as in the JAX package.
+
+With a `group` (the `data` axis of a data-parallel run, this rank holding
+its rows of the global batch) the two normalisers are batch-wide, as one
+process computes them over the whole batch: the positives and the
+centerness targets are summed over the group, and each rank divides its
+own sums by its share, the global normaliser over the group's size, so
+that the mean of the ranks' losses is the global batch's. `num_pos` is
+then the global count.
 """
 
 from __future__ import annotations
@@ -19,7 +27,9 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 
+from lpi_tpu_torch.core.dist import all_sum
 from lpi_tpu_torch.ops.boxes import (box_center, box_iou, decode_boxes, elementwise_giou,
                                      encode_boxes)
 from lpi_tpu_torch.ops.clip import clip
@@ -87,11 +97,13 @@ def atss_losses(anchors: torch.Tensor, level_counts: Sequence[int],
                 bbox_pred: torch.Tensor, centerness: torch.Tensor,
                 dot_logits: torch.Tensor, gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
                 positive_map: torch.Tensor, text_masks: torch.Tensor, topk: int = 9,
-                reg_loss_weight: float = 2.0) -> dict:
+                reg_loss_weight: float = 2.0, group=None) -> dict:
     """Batch grounding losses: anchors [A, 4], bbox_pred [B, A, 4],
     centerness [B, A], dot_logits [B, A, T], gt_boxes [B, G, 4], gt_valid
     [B, G], positive_map [B, G, T], text_masks [B, T] -> dict(loss_reg,
-    loss_centerness, loss_dot_product_token, num_pos)."""
+    loss_centerness, loss_dot_product_token, num_pos). `group`: the
+    normalisers summed over it (this rank's share of the global batch's
+    losses)."""
     T = dot_logits.shape[-1]
     with torch.no_grad():
         matches = [atss_match(anchors, level_counts, gb, gv.bool(), topk)
@@ -106,13 +118,21 @@ def atss_losses(anchors: torch.Tensor, level_counts: Sequence[int],
     token_labels = torch.where(pos[..., None], tok, noobj)
 
     num_pos_raw = pos.sum().float()
+    if group is not None:
+        num_pos_raw = all_sum(num_pos_raw, group)
     num_pos = torch.clamp(num_pos_raw, min=1.0)
+    if group is not None:
+        num_pos = num_pos / dist.get_world_size(group)
     loss_dot = token_sigmoid_focal_loss(dot_logits, token_labels, text_masks).sum() / num_pos
 
     matched_boxes = gt_boxes.gather(1, matched[..., None].expand(-1, -1, 4))
     reg_targets = encode_boxes(matched_boxes, anchors[None])
     ctr_t = torch.where(pos, centerness_targets(reg_targets, anchors[None]), 0.0)
-    sum_ctr = torch.clamp(ctr_t.sum(), min=1e-6)
+    sum_ctr = ctr_t.sum()
+    if group is not None:
+        sum_ctr = torch.clamp(all_sum(sum_ctr, group), min=1e-6) / dist.get_world_size(group)
+    else:
+        sum_ctr = torch.clamp(sum_ctr, min=1e-6)
 
     giou = elementwise_giou(decode_boxes(bbox_pred, anchors[None]), matched_boxes)
     loss_reg = torch.where(pos, (1.0 - giou) * ctr_t, 0.0).sum() / sum_ctr

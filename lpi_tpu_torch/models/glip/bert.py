@@ -43,13 +43,16 @@ class BertSelfAttention(nn.Module):
         self.value = Dense(D, D, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor, attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        B, S, D = x.shape
+        B, S, _ = x.shape
+        q, k, v = self.query(x), self.key(x), self.value(x)
+        # the projections' width: D, or D / mp under tensor parallelism
+        # (`core.mesh.shard_params` then keeps heads / mp heads here)
+        D = q.shape[-1]
         shape = (B, S, self.num_heads, D // self.num_heads)
         bias = None
         if attention_mask is not None:  # [B, S] 1/0 -> additive [B, 1, 1, S]
             bias = (1.0 - attention_mask[:, None, None, :].float()) * -10000.0
-        out = attention(self.query(x).reshape(shape), self.key(x).reshape(shape),
-                        self.value(x).reshape(shape), bias)
+        out = attention(q.reshape(shape), k.reshape(shape), v.reshape(shape), bias)
         return out.reshape(B, S, D)
 
 

@@ -2,7 +2,9 @@
 --platform cpu ...`), at tiny widths given by a `--config` json.
 
 `train` and `train-grounding` run two sessions each on synthetic data and
-save their checkpoints and result files; `eval`, `eval-all` (both kinds)
+save their checkpoints and result files; `train` under torchrun on two gloo
+ranks gives the one process's losses, pools and results, and only rank 0
+writes; the other commands refuse more than one rank; `eval`, `eval-all` (both kinds)
 and `predict` then restore from those checkpoints in fresh learners and
 must give exactly what the training run recorded or computed; `report`
 gives the JAX package's `get_res` on the same file. The result files carry
@@ -142,6 +144,57 @@ def test_train_writes_the_reference_schema_and_checkpoints(retrieval):
     for name, v in clip.items():  # the towers stay the converted checkpoint's
         assert torch.equal(learner.frozen[name], v), name
     assert learner.task_relation.tolist() == [[1, 1, 0], [1, 1, 0], [0, 0, 1]]
+
+
+def test_train_under_torchrun_on_two_ranks_equals_one_process(retrieval, config, tmp_path):
+    """`torchrun --nproc-per-node 2 -m lpi_tpu_torch.cli.main --platform cpu
+    train ...` (gloo, a (2, 1) mesh, each rank on half of every batch): the
+    sessions' losses and pools within the repo's bar of the one process's,
+    its evaluations and frozen base equal; rank 0 alone writes."""
+    d, _, _, results, _ = retrieval
+    out = tmp_path / "res"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "2", "--log-dir", str(tmp_path / "logs"), "--redirects", "3",
+           "-m", "lpi_tpu_torch.cli.main", "--platform", "cpu", "train", "--synthetic",
+           "--sessions", "2", "--epochs", "1", "--config", config,
+           "--clip-ckpt", str(d / "clip.pt"), "--task-sim", str(d / "sim.txt"),
+           "--output-dir", str(out), "--checkpoint-dir", str(tmp_path / "ckpt")]
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
+    r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    logs = {int(p.parent.name): p.read_text()
+            for p in (tmp_path / "logs").glob("**/stderr.log")}
+    assert r.returncode == 0, (r.stderr[-2000:], logs)
+    assert sorted(logs) == [0, 1]
+    assert "results written" in logs[0] and "results written" not in logs[1]
+    assert all("rank %d of a 2x1 (data, model) mesh" % k in logs[k] for k in logs)
+
+    written = sorted(os.listdir(out))
+    assert [n for n in written if n.endswith(".json")] != [] and len(written) == 3
+    with open(out / next(n for n in written if n.endswith(".json"))) as f:
+        assert json.load(f) == results
+    lines = [json.loads(x) for x in (out / "metrics.jsonl").read_text().splitlines()]
+    ref = [json.loads(x) for x in (d / "res" / "metrics.jsonl").read_text().splitlines()]
+    assert len(lines) == len(ref) == 2
+    for mine, theirs in zip(lines, ref):
+        for k in ("total", "base_loss", "alignment_loss", "task_loss"):
+            assert mine[k] == pytest.approx(theirs[k], rel=1e-4, abs=1e-7), k
+    ours, want = SessionCheckpointer(str(tmp_path / "ckpt")), SessionCheckpointer(str(d / "ckpt"))
+    assert ours.latest_session() == 1
+    base = ours.load_base()
+    assert all(torch.equal(v, want.load_base()[k]) for k, v in base.items())
+    theirs_pools = want.load_session(1)["pool_params"]
+    for name, v in ours.load_session(1)["pool_params"].items():
+        np.testing.assert_allclose(v.numpy(), theirs_pools[name].numpy(), rtol=0, atol=3e-3)
+        assert (np.linalg.norm(v.numpy() - theirs_pools[name].numpy())
+                <= 1e-4 * np.linalg.norm(theirs_pools[name].numpy())), name
+
+
+@pytest.mark.parametrize("command", ["train-grounding", "eval"])
+def test_other_commands_refuse_more_than_one_rank(command, monkeypatch):
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(SystemExit, match=f"{command} runs in one process"):
+        cli.main(["--platform", "cpu", command, "--synthetic", "--checkpoint-dir", "unused"]
+                 if command == "eval" else ["--platform", "cpu", command, "--synthetic"])
 
 
 def test_eval_and_eval_all_reproduce_the_training_run(retrieval, config99, capsys):

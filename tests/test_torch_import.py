@@ -31,6 +31,24 @@ def test_port_and_chip_smoke_import_without_jax():
     assert bad == "[]", bad
 
 
+def test_the_distributed_modules_and_a_spawned_rank_import_without_jax(tmp_path):
+    """`core.dist`, `core.mesh`, `core.pipeline` and `dryrun` are among the
+    modules that the probe above imports; a rank that `dryrun.run_world`
+    spawns (gloo) holds neither JAX nor the JAX package after importing
+    them."""
+    import pkgutil
+
+    import lpi_tpu_torch
+    from lpi_tpu_torch.dryrun import run_world
+    from tests import torch_dist_workers as workers
+
+    names = {m.name for m in pkgutil.walk_packages(lpi_tpu_torch.__path__, "lpi_tpu_torch.")}
+    assert {"lpi_tpu_torch.core.dist", "lpi_tpu_torch.core.mesh", "lpi_tpu_torch.core.pipeline",
+            "lpi_tpu_torch.dryrun"} <= names
+    assert run_world(workers.modules_loaded, 1, "cpu", workdir=str(tmp_path)) == [
+        {"jax": False, "lpi_tpu": False}]
+
+
 def test_chip_smoke_refuses_without_card():
     """Without a card the script exits non-zero and prints no result."""
     if torch.cuda.is_available():

@@ -939,3 +939,13 @@ def test_knowledge_forward_card_matches_cpu_and_captured_request_equals_eager(ca
                           for e, s, b in zip(r["entities"], r["scores"], r["boxes"]))
         assert rows(got) == rows(want)
     assert len(preds[1]._graphs) == 1 and not preds[0]._graphs
+
+
+def test_world_size_one_captured_step_equals_the_step_without_a_mesh(card, tmp_path):
+    """The distributed code path on the card: one NCCL rank, a (1, 1) mesh,
+    the retrieval step captured with its collectives inside, equal in bits
+    to the eager step of a learner without a mesh."""
+    from lpi_tpu_torch.dryrun import captured_leg, run_world
+
+    out = run_world(captured_leg, 1, "gpu", workdir=str(tmp_path))[0]
+    assert out == {"backend": "nccl", "graphs": (0, 1), "metrics": True, "pools": True}
