@@ -107,9 +107,9 @@ The command line (`python -m lpi_tpu_torch.cli.main`), run in this process
 under deterministic algorithms, in a temporary directory deleted after it:
 
    12. 12a: rows 1f, 2f, 1b and 2b at P3 of the 448 px head at the command
-       line's batch 16 (bf16 maps), one call each against its plain version
-       with the bars of phases 2 and 2b, one launch a call, timed beside
-       its bound; 12b: `train-grounding --synthetic --tasks 2 --epochs 1`
+       line's batch 16 (bf16 maps), against its plain version with the
+       bars of phases 2 and 2b, one launch a call, two calls equal bit for
+       bit, timed beside its bound (`check_window_shapes`, as 16b); 12b: `train-grounding --synthetic --tasks 2 --epochs 1`
        at `GroundingConfig()` (full GLIP-T + LPI, 448 px, bf16, batch 16,
        "pallas"): finite losses, the four window kernels launched (the
        counters), `base/`, both sessions, their results and `latest`
@@ -131,7 +131,7 @@ weights, under deterministic algorithms:
 
    13. 13a: the retrieval step of phase 9 at `RetrievalConfig()` with the
        lpi section of `sprompts.json`, of `l2p.json` and with
-       `prompt_type="clip"`: 1 + 10 steps eager and 1 + 10 captured from
+       `prompt_type="clip"`: 1 + 5 steps eager and 1 + 5 captured from
        the same start, losses finite with the type's keys (the auxiliary
        losses are "lpi"'s alone), captured equal to eager in bits, only
        row 1 of every pool leaf moved (L2P's shared pool included), no
@@ -140,14 +140,16 @@ weights, under deterministic algorithms:
        or the named error where the reference has no L2P evaluation; 13b:
        phase 9b's fp32 loss and pool gradient, card vs CPU, for S-Prompts
        and L2P, with L2P's chosen entries equal; 13c: phase 5's step
-       ("pallas", batch 4, `honest_offsets`) with the grounding section of
-       `sprompts.json` and with `maple.json` (54 / 24 / 54 / 24 launches by
+       ("pallas", batch 4, `honest_offsets`, 1 + 5 steps a mode) with the
+       grounding section of `sprompts.json` and with `maple.json` (54 / 24 /
+       54 / 24 launches by
        the counters and by kernel name, captured equal to eager in bits,
        the frozen parameters and other rows unchanged), then one request
        of each trained model eager and captured, equal; 13d: phase 6's
        fp32 loss and pool gradient at batch 1, card vs CPU, each leaf too,
        for both pools (MaPLe's replace mode and the encoder without
-       interaction on the card); 13e: `train-grounding --config configs/baselines/maple.json
+       interaction on the card), the head cut to 2 towers on both sides
+       (`cpu_depth_cut`: the CPU's time); 13e: `train-grounding --config configs/baselines/maple.json
        --synthetic --tasks 2 --epochs 1` at `GroundingConfig()`, then
        `eval-all --grounding` in a learner seeded 99, equal to the
        training run's head outputs and results in bits.
@@ -157,13 +159,14 @@ full width with seeded weights:
 
    14. 14a: the early-fusion request (`dyhead.early_fuse`: a VLFuse at
        embed 2048 over 8 heads between the 4,181 visual tokens and the text,
-       and a BERT layer, before each of the 6 towers), 1 + 5 requests eager
-       and 1 + 5 captured, equal, 54 / 24 window launches a forward by
-       counter and kernel name, then fp32 card vs CPU on the head outputs;
-       14b: its train step (b4, task 1, `honest_offsets`, the fusion and
-       BERT layers frozen), 1 + 5 steps a mode as phase 5 (54 / 24 / 54 / 24,
+       and a BERT layer, before each of the 6 towers), 1 + 3 requests eager
+       and 1 + 3 captured, equal, 54 / 24 window launches a forward by
+       counter and kernel name, then fp32 card vs CPU on the head outputs
+       with its first 2 towers (`cpu_depth_cut`); 14b: its train step (b4, task 1, `honest_offsets`, the fusion and
+       BERT layers frozen), 1 + 3 steps a mode as phase 5 (54 / 24 / 54 / 24,
        captured equal to eager in bits), and phase 6's fp32 loss and pool
-       gradient at batch 1, card vs CPU, each leaf too; 14c:
+       gradient at batch 1, card vs CPU, each leaf too, with 2 towers
+       (`cpu_depth_cut`); 14c:
        `predict_classes` (GLIP-KNOW) on the LPI model with five class names
        and a knowledge json written to a temporary directory, eager and
        captured, equal, 54 / 24 a forward; 14d: the plain head (no
@@ -179,17 +182,49 @@ processes started by `lpi_tpu_torch.dryrun.run_world`, so that no process
 group touches the other phases:
 
    15. 15a: one NCCL rank on the card, a (1, 1) (data, model) mesh, the
-       retrieval step at `RetrievalConfig()` (b64, task 1) 1 + 10 steps a
+       retrieval step at `RetrievalConfig()` (b64, task 1) 1 + 5 steps a
        mode: a learner without a mesh and one on the mesh (its collectives
        inside the graph), each eager and captured, all four equal in bits,
        no deform kernel launched; 15b: the same for the grounding step at
-       `GroundingConfig()` (b4, "pallas", `honest_offsets`, 1 + 5 steps),
+       `GroundingConfig()` (b4, "pallas", `honest_offsets`, 1 + 3 steps),
        54 / 24 / 54 / 24 window launches a step by counter and by kernel
        name in a profiled call; each mode's median, busy share and peak
        memory side by side; 15c: with two cards, both steps on 2 NCCL
        ranks (global b64 and b4) against the one-process runs of 15a and
        15b at relative Frobenius 1e-4 on each loss and pool leaf; with one
        card, a line that says it did not run and why.
+
+The data and detection-evaluation surface (`lpi_tpu_torch.data.{catalog,
+transforms,samplers,grounding}`, `lpi_tpu_torch.eval.{tta,coco_ap,lvis,voc,
+flickr}`), under deterministic algorithms, in a temporary directory deleted
+after it:
+
+   16. 16a: a fabricated mdetr RefExp set (32 JPEGs of task 0, about
+       640x480) where the catalog looks for `refexp_train` under
+       `$DATASET`; `train-grounding --dataset refexp_train --tasks 1
+       --epochs 1` at `GroundingConfig()` (b16, "pallas") equal in bits to
+       the same command with `--ann/--image-root` on the same files (the
+       results, the pools, metrics.jsonl's losses), the four window kernels
+       launched in each; 16b: multi-scale training at full width (b4, bf16,
+       task 1, `honest_offsets`) on that set loaded with
+       `AugmentConfig(multi_scale=(480, 560, 640, 720, 800))`: a pad-to-max
+       batch at 800 px through phase 5's step (1 + 5 steps eager and 1 + 5
+       captured, equal in bits, 54 / 24 / 54 / 24 by counter and by kernel
+       name, median, samples/s, busy share, peak memory); the first
+       scale-grouped batches at 560 and 800 px (`batches_grouped`), each
+       captured in its own graph and replayed, equal in bits to eager; then
+       rows 1f, 2f, 1b and 2b at every level shape of 800 px (100, 50, 25,
+       13, 7) and 560 px (70, 35, 18, 9, 5), b4, bf16, Cout 256, against
+       their plain versions with the bars of phases 2 and 2b, one launch a
+       call, two calls equal bit for bit, timed beside their bounds; 16c:
+       `eval.tta.multi_scale_detect` over `GroundingPredictor` requests at
+       448, 560 and 800 px with flips (six forwards), eager and captured,
+       equal merged detections, the forwards' launches by the counters,
+       then the fp32 head outputs at 560 px, card vs CPU, at phase 4's bar;
+       16d: `eval-detection` with the COCO, LVIS, VOC and Flickr protocols
+       on 16c's detections written as a predictions json against a
+       fabricated ground truth, every value finite and equal to the
+       evaluator called directly.
 
 Each phase drops its learners and predictors, and with them their graphs'
 memory pools, before the next.
@@ -672,7 +707,8 @@ def expected_counts(dk, fk, cfg, n: int, train: bool) -> dict:
     return want
 
 
-def train_phase(dk, fk, cfg, tok, records, what=None, keep_model=False, n_steps=10):
+def train_phase(dk, fk, cfg, tok, records, what=None, keep_model=False, n_steps=10,
+                batch=None):
     """Phases 5 and 5b: the full-width train step, batch 4, 448 px, bf16,
     task 1, on the route `cfg.dyhead.deform_impl` names, with the offset
     convs at a trained model's size (`honest_offsets`): 1 + `n_steps` steps
@@ -683,8 +719,9 @@ def train_phase(dk, fk, cfg, tok, records, what=None, keep_model=False, n_steps=
     share and kernels, the peak memory; the replayed step's deform launches
     by kernel name; captured against eager in bits; the frozen parameters
     and the other tasks' rows bit-identical. `what` names the run in the
-    log (the route by default). -> the batch, and with `keep_model` the
-    trained model too."""
+    log (the route by default); `batch` replaces the synthetic 448 px batch
+    (phase 16b's multi-scale batch). -> the batch, and with `keep_model`
+    the trained model too."""
     from lpi_tpu_torch.bench import deterministic, honest_offsets
     from lpi_tpu_torch.continual.grounding_learner import GroundingLearner
     from lpi_tpu_torch.data.grounding import synthetic_grounding_task
@@ -697,9 +734,10 @@ def train_phase(dk, fk, cfg, tok, records, what=None, keep_model=False, n_steps=
     honest_offsets(learner.model)
     log(f"train {label}: learner built in {time.perf_counter() - t:.3f} s; offset convs "
         f"scaled (kernel x30, bias[:18] ~ N(0, 1)) for realistic offsets")
-    ds = synthetic_grounding_task(TRAIN_TASK, TRAIN_BATCH, cfg.image_size, tok,
-                                  max_boxes=cfg.max_boxes)
-    batch = next(ds.batches(TRAIN_BATCH))
+    if batch is None:
+        ds = synthetic_grounding_task(TRAIN_TASK, TRAIN_BATCH, cfg.image_size, tok,
+                                      max_boxes=cfg.max_boxes)
+        batch = next(ds.batches(TRAIN_BATCH))
     before = {n: p.detach().clone() for n, p in learner.model.named_parameters()}
     runs = {}
     with deterministic():
@@ -1029,13 +1067,17 @@ def predict_phase(dk, fk, model, keys, tok, cfg, image, caption, n_req=11, profi
 
 
 def fp32_heads(model, cfg32, keys, canvas, ids, mask, device):
-    """The fp32 copy of `model` on `device`: task id and head outputs of one
-    image, TF32 off."""
+    """The fp32 copy of `model` on `device` at `cfg32` (which may have fewer
+    head towers than `model`: the copy takes the first ones): task id and
+    head outputs of one image, TF32 off."""
     from lpi_tpu_torch.continual.keys import exact_fp32, infer_task_ids
     from lpi_tpu_torch.models.glip.grounding import GroundedVLModel
 
     m32 = GroundedVLModel(cfg32)
-    m32.load_state_dict(model.state_dict())
+    missing, _ = m32.load_state_dict(model.state_dict(), strict=False)
+    if missing:
+        raise AssertionError(f"fp32 copy: {len(missing)} parameters not in the model, "
+                             f"{missing[:3]}")
     m32 = m32.to(device).eval()
     t = time.perf_counter()
     with torch.no_grad(), exact_fp32():
@@ -1572,41 +1614,55 @@ CLI_WINDOW = ("window_accumulate_taps_inpad", "window_accumulate_taps_s2",
               "window_accumulate_taps_inpad_backward", "window_accumulate_taps_s2_backward")
 
 
-def check_batch16_kernels(dk, gen, records):
-    """Phase 12a: rows 1f, 2f, 1b and 2b at P3 of the 448 px head at the
-    command line's batch 16 (bf16 maps), one call of each against its plain
-    version with the bars of phases 2 and 2b, one launch a call; device ms
-    beside the bound, into the records (`b16_ms`, `b16_bound_ms`)."""
+def check_window_shapes(dk, gen, records, batch, shapes, label):
+    """Rows 1f, 2f, 1b and 2b at `batch` (bf16 maps, Cout 256) and each
+    input side of `shapes` ({stride: {side: launches}}) against their plain
+    versions with the bars of phases 2 and 2b, one launch a call, two calls
+    equal bit for bit, each timed (CUDA graphs) beside its bound; the
+    errors into the records' `max_abs_err` (d h_all's aside, as in 2b).
+    -> {kernel: {"ms", "bound_ms"}}, each summed over its launches."""
     specs = ((1, dk.window_accumulate_taps_inpad, dk.window_accumulate_taps_inpad_reference,
               dk.window_accumulate_taps_inpad_backward,
               dk.window_accumulate_taps_inpad_backward_reference),
              (2, dk.window_accumulate_taps_s2, dk.window_accumulate_taps_s2_reference,
               dk.window_accumulate_taps_s2_backward,
               dk.window_accumulate_taps_s2_backward_reference))
+    sums = {}
     for stride, fwd, fwd_ref, bwd, bwd_ref in specs:
-        h, oy, ox, g, ct = kernel_inputs(gen, CLI_P3, stride, torch.bfloat16, CLI_BATCH)
-        args, bargs = (h, oy, ox, g, M, K, KW), (h, oy, ox, g, ct, M, K, KW)
-        where = f"b{CLI_BATCH} in {CLI_P3}x{CLI_P3}x{K * 256} stride {stride}"
-        err = _held(f"{fwd.__name__} {where}", _launched_once(fwd, *args), fwd_ref(*args))
-        ms = device_time_ms(lambda: fwd(*args), inner=10)
-        bound, kind = window_bound_ms(h, oy, 256, offsets=(ox, g, stride, M, KW))
-        log(f"kernel {fwd.__name__} bf16 {where} on {card_line()}: {ms:.6f} ms, bound "
-            f"{bound:.6f} ms ({kind}, the weighted rows of h; {100 * bound / ms:.1f}% of it), "
-            f"max abs err {err:.3e}")
-        records[fwd.__name__].update(b16_ms=ms, b16_bound_ms=bound)
-        got = _launched_once(bwd, *bargs)
-        want = bwd_ref(h.float(), oy, ox, g, ct, M, K, KW)
-        errs = [_held(f"{bwd.__name__} {where} {what}", a, b, bf16=what == "dh")
-                for what, a, b in zip(("dh", "doy", "dox", "dgate"), got, want)]
-        del got, want
-        ms = device_time_ms(lambda: bwd(*bargs), inner=10)
-        bound, kind = window_bound_ms(h, oy, 256, backward=True)
-        log(f"kernel {bwd.__name__} bf16 {where} on {card_line()}: {ms:.6f} ms, bound "
-            f"{bound:.6f} ms ({kind}; {100 * bound / ms:.1f}% of it), max abs err "
-            f"{', '.join(f'{e:.3e}' for e in errs)} (d h_all bf16)")
-        records[bwd.__name__].update(b16_ms=ms, b16_bound_ms=bound)
-        del h, oy, ox, g, ct, args, bargs
+        for side, n in shapes[stride].items():
+            h, oy, ox, g, ct = kernel_inputs(gen, side, stride, torch.bfloat16, batch)
+            args, bargs = (h, oy, ox, g, M, K, KW), (h, oy, ox, g, ct, M, K, KW)
+            where = f"{label} b{batch} in {side}x{side}x{K * 256} stride {stride}"
+            got = _launched_once(fwd, *args)
+            if not torch.equal(got, _launched_once(fwd, *args)):
+                raise AssertionError(f"{fwd.__name__} {where}: two calls differ")
+            err = _held(f"{fwd.__name__} {where}", got, fwd_ref(*args))
+            got = _launched_once(bwd, *bargs)
+            if not all(torch.equal(a, b) for a, b in zip(got, _launched_once(bwd, *bargs))):
+                raise AssertionError(f"{bwd.__name__} {where}: two calls differ")
+            want = bwd_ref(h.float(), oy, ox, g, ct, M, K, KW)
+            errs = [_held(f"{bwd.__name__} {where} {what}", a, b, bf16=what == "dh")
+                    for what, a, b in zip(("dh", "doy", "dox", "dgate"), got, want)]
+            del got, want
+            for fn, a, (bound, kind), kernel_errs in (
+                    (fwd, args, window_bound_ms(h, oy, 256, offsets=(ox, g, stride, M, KW)),
+                     [("out", err)]),
+                    (bwd, bargs, window_bound_ms(h, oy, 256, backward=True),
+                     list(zip(("dh (bf16)", "doy", "dox", "dgate"), errs)))):
+                rec = records[fn.__name__]
+                rec["max_abs_err"] = max(rec["max_abs_err"],
+                                         *(e for w, e in kernel_errs if w != "dh (bf16)"))
+                ms = device_time_ms(lambda: fn(*a), inner=10)
+                log(f"kernel {fn.__name__} bf16 {where} on {card_line()}: {ms:.6f} ms, bound "
+                    f"{bound:.6f} ms ({kind}; {100 * bound / ms:.1f}% of it), max abs err "
+                    f"{', '.join(f'{w} {e:.3e}' for w, e in kernel_errs)}; two calls equal "
+                    f"bit for bit; {n} launches")
+                total = sums.setdefault(fn.__name__, {"ms": 0.0, "bound_ms": 0.0})
+                total["ms"] += n * ms
+                total["bound_ms"] += n * bound
+            del h, oy, ox, g, ct, args, bargs
     torch.cuda.empty_cache()
+    return sums
 
 
 def run_cli(*argv):
@@ -1930,7 +1986,9 @@ def cli_phase(dk, fk, gen, records):
     from lpi_tpu_torch.bench import deterministic
 
     t = time.perf_counter()
-    check_batch16_kernels(dk, gen, records)
+    p3 = {1: {CLI_P3: 1}, 2: {CLI_P3: 1}}
+    for name, rec in check_window_shapes(dk, gen, records, CLI_BATCH, p3, "P3").items():
+        records[name].update(b16_ms=rec["ms"], b16_bound_ms=rec["bound_ms"])
     log(f"phase 12a: {time.perf_counter() - t:.3f} s")
     work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
@@ -1946,7 +2004,14 @@ def cli_phase(dk, fk, gen, records):
 
 
 # ---- phase 13: the baseline prompt types --------------------------------------
-BASELINE_STEPS = 10
+BASELINE_STEPS = 5
+
+
+def cpu_depth_cut(cfg):
+    """`cfg` with the head cut from 6 towers to 2, for the card-vs-CPU
+    gradient comparisons of phases 13d and 14b: the CPU's plain deformable
+    convs take most of their time, and every width stays."""
+    return with_head(cfg, num_convs=2)
 
 
 def baseline_file(kind) -> str:
@@ -2035,7 +2100,7 @@ def cli_baseline_phase(dk, fk, work):
 def baseline_phase(dk, fk, tok):
     """Phase 13: the baseline prompt types at full width, seeded weights,
     under deterministic algorithms. 13a: the retrieval step with S-Prompts,
-    L2P and zero-shot CLIP (`retrieval_train_phase`, 1 + 10 steps a mode);
+    L2P and zero-shot CLIP (`retrieval_train_phase`, 1 + 5 steps a mode);
     13b: their fp32 loss and pool gradient, card vs CPU, S-Prompts and L2P;
     13c: the grounding step ("pallas", batch 4, `honest_offsets`) with
     S-Prompts and with MaPLe (`train_phase`), then one request each,
@@ -2061,14 +2126,15 @@ def baseline_phase(dk, fk, tok):
         for kind in ("sprompts", "maple"):
             t = time.perf_counter()
             cfg = baseline_config(kind, "grounding", batch_size=TRAIN_BATCH)
-            batch, model = train_phase(dk, fk, cfg, tok, {}, f"pallas {kind}", keep_model=True)
+            batch, model = train_phase(dk, fk, cfg, tok, {}, f"pallas {kind}", keep_model=True,
+                                       n_steps=BASELINE_STEPS)
             baseline_request(dk, fk, model, cfg, tok)
             del model
             torch.cuda.empty_cache()
             log(f"phase 13c ({kind}): {time.perf_counter() - t:.3f} s")
             t = time.perf_counter()
-            log(f"phase 13d ({kind}): fp32 losses and pool gradient, card vs cpu")
-            gradient_phase(cfg, batch)
+            log(f"phase 13d ({kind}): fp32 losses and pool gradient, card vs cpu, 2 towers")
+            gradient_phase(cpu_depth_cut(cfg), batch)
             log(f"phase 13d ({kind}): {time.perf_counter() - t:.3f} s")
         work = tempfile.mkdtemp(prefix="chip_smoke_baselines_")
         try:
@@ -2080,7 +2146,7 @@ def baseline_phase(dk, fk, tok):
 
 
 # ---- phase 14: the head variants and GLIP-KNOW's detection mode ---------------
-VARIANT_REQUESTS, VARIANT_STEPS = 5, 5
+VARIANT_REQUESTS, VARIANT_STEPS = 3, 3
 KNOWLEDGE = {
     "car": {"clean_name": "car", "def_wiki": "a road vehicle with four wheels.",
             "gpt3": ["cars have doors.", "cars drive on roads."]},
@@ -2091,13 +2157,13 @@ KNOWLEDGE = {
 CLASS_NAMES = ["car", "tree", "dog", "person", "bench"]
 
 
-def seeded_keys(cfg, seed):
-    """Task keys for the 448 px model: random unit-scale centres in P7's
-    feature space, every task valid."""
+def seeded_keys(cfg, seed, p7=4):
+    """Task keys: random unit-scale centres in the feature space of a P7 of
+    side `p7` (4 at 448 px), every task valid."""
     from lpi_tpu_torch.continual.keys import TaskKeys
 
     rng = np.random.RandomState(seed)
-    feat_dim = cfg.dyhead.channels * 4 * 4  # P7 at 448 px
+    feat_dim = cfg.dyhead.channels * p7 * p7
     centers = (rng.randn(cfg.total_tasks, cfg.num_key_clusters, feat_dim)
                / np.sqrt(feat_dim)).astype(np.float32)
     return TaskKeys(torch.from_numpy(centers), torch.ones(cfg.total_tasks, dtype=torch.bool))
@@ -2179,10 +2245,10 @@ def variants_phase(dk, fk, tok, records):
     canvas, _ = predictor._prepare_image(image)
     ids, mask, _ = tok([CLI_CAPTION])
     del predictor
-    cfg32 = dataclasses.replace(cfg_ef, dtype="float32")
+    cfg32 = dataclasses.replace(cpu_depth_cut(cfg_ef), dtype="float32")
     compare_heads(fp32_heads(model, cfg32, keys, canvas, ids, mask, "cuda"),
                   fp32_heads(model, cfg32, keys, canvas, ids, mask, "cpu"),
-                  "early fusion, card vs cpu")
+                  "early fusion (2 towers), card vs cpu")
     del model
     torch.cuda.empty_cache()
     log(f"phase 14a: {time.perf_counter() - t:.3f} s")
@@ -2195,8 +2261,8 @@ def variants_phase(dk, fk, tok, records):
         {k: v["launches"] for k, v in step_records.items() if v},
         {k: v["replay_launches_per_step"] for k, v in step_records.items() if v},
         VARIANT_STEPS)
-    log("phase 14b: fp32 losses and pool gradient, early fusion, card vs cpu")
-    gradient_phase(cfg_ef, batch)
+    log("phase 14b: fp32 losses and pool gradient, early fusion, card vs cpu, 2 towers")
+    gradient_phase(cpu_depth_cut(cfg_ef), batch)
     log(f"phase 14b: {time.perf_counter() - t:.3f} s")
 
     t = time.perf_counter()
@@ -2256,7 +2322,7 @@ def variants_phase(dk, fk, tok, records):
 
 
 # ---- phase 15: the distributed steps (a process group, a mesh) --------------
-MESH_RETRIEVAL_STEPS, MESH_GROUNDING_STEPS = 10, 5
+MESH_RETRIEVAL_STEPS, MESH_GROUNDING_STEPS = 5, 3
 
 
 def mesh_steps(dk, fk, learner, make_step, batch, steps, mode, before, what):
@@ -2447,6 +2513,406 @@ def mesh_phase():
             f"({card_line()})")
 
 
+# ---- phase 16: the dataset catalog, multi-scale training and TTA, the evaluators
+# GLIP's AUGMENT.MULT_MIN_SIZE_TRAIN, the range `lpi_tpu/data/samplers.py` names
+MULTI_SCALE = (480, 560, 640, 720, 800)
+MULTI_SCALE_STEPS = 5
+GROUPED_SIDES = (560, 800)
+TTA_SCALES = (448, 560, 800)
+TTA_CPU_SCALE = 560  # the scale whose fp32 head outputs are held card vs CPU
+REFEXP_IMAGES = 32
+REFEXP_CAPTION = "the toaster next to a red kettle"
+# per category id of the fabricated ground truth: training images, the LVIS
+# bins rare, common and frequent
+LVIS_COUNTS = {1: 3, 2: 50, 3: 500}
+
+
+def level_sides(px: int) -> list:
+    """The head's five level sides at a `px` input (strides 8 to 128, each
+    the ceiling of half the one before): 100, 50, 25, 13, 7 at 800 px."""
+    sides = [-(-px // 8)]
+    while len(sides) < 5:
+        sides.append(-(-sides[-1] // 2))
+    return sides
+
+
+def write_refexp(root, n=REFEXP_IMAGES):
+    """A fabricated mdetr RefExp set where the catalog looks for
+    `refexp_train` under `root`: `n` JPEGs of about 640x480 (noise and one
+    coloured box each), all of task 0 (appliance), under `coco/train2014`,
+    and `mdetr_annotations/finetune_refcoco_train.json`. -> (the json's
+    path, the image directory)."""
+    from PIL import Image
+
+    rng = np.random.RandomState(16)
+    images = os.path.join(root, "coco", "train2014")
+    os.makedirs(images)
+    os.makedirs(os.path.join(root, "mdetr_annotations"))
+    entries, anns = [], []
+    for i in range(n):
+        W, H = 640 - 8 * (i % 5), 480 + 6 * (i % 3)
+        img = (rng.rand(H, W, 3) * 90).astype(np.uint8)
+        w, h = rng.randint(W // 5, W // 2), rng.randint(H // 5, H // 2)
+        x, y = rng.randint(0, W - w), rng.randint(0, H - h)
+        img[y:y + h, x:x + w] = (220, 60 + 5 * i, 40)
+        name = f"COCO_train2014_{i:012d}.jpg"
+        Image.fromarray(img).save(os.path.join(images, name), quality=90)
+        entries.append({"id": i, "file_name": name, "height": H, "width": W,
+                        "caption": REFEXP_CAPTION})
+        anns.append({"id": i + 1, "image_id": i, "category_id": 1,
+                     "bbox": [float(x), float(y), float(w), float(h)],
+                     "tokens_positive": [[4, 11]]})
+    ann = os.path.join(root, "mdetr_annotations", "finetune_refcoco_train.json")
+    with open(ann, "w") as f:
+        json.dump({"images": entries, "annotations": anns, "categories": [
+            {"id": 1, "name": "toaster", "supercategory": "appliance"}]}, f)
+    return ann, images
+
+
+def logged_losses(directory):
+    """metrics.jsonl's records without their clocks."""
+    with open(os.path.join(directory, "metrics.jsonl")) as f:
+        return [{k: v for k, v in json.loads(line).items()
+                 if k not in ("time", "samples_per_sec")} for line in f]
+
+
+def dataset_phase(dk, fk, work, ann, images):
+    """16a: `train-grounding --dataset refexp_train --tasks 1 --epochs 1` at
+    `GroundingConfig()` (b16, "pallas"), its files found through
+    `$DATASET`, against the same command with `--ann/--image-root` on the
+    same files: the results, the pools and metrics.jsonl's losses equal in
+    bits, the four window kernels launched in each."""
+    runs = {}
+    saved = os.environ.get("DATASET")
+    os.environ["DATASET"] = os.path.dirname(os.path.dirname(images))
+    try:
+        for how, source in (("dataset", ("--dataset", "refexp_train")),
+                            ("ann", ("--ann", ann, "--image-root", images))):
+            out = os.path.join(work, f"res_{how}")
+            reset_counts(dk, fk)
+            (path, learner), wall, _ = run_cli("train-grounding", *source, "--tasks", "1",
+                                               "--epochs", "1", "--output-dir", out,
+                                               "--checkpoint-dir", os.path.join(work, f"ck_{how}"))
+            launches = {k: v for k, v in launch_counts(dk, fk).items() if v}
+            log(f"16a train-grounding {' '.join(source[:2])}: {wall:.3f} s, launch counters "
+                f"{launches}")
+            if set(launches) != set(CLI_WINDOW):
+                raise AssertionError(f"16a {how}: launched {launches}")
+            with open(path) as f:
+                runs[how] = (json.load(f), cpu_state(learner.pools), logged_losses(out))
+            del learner
+            torch.cuda.empty_cache()
+    finally:
+        if saved is None:
+            os.environ.pop("DATASET")
+        else:
+            os.environ["DATASET"] = saved
+    (res, pools, losses), (want_res, want_pools, want_losses) = runs["dataset"], runs["ann"]
+    if res != want_res or losses != want_losses:
+        raise AssertionError(f"16a: --dataset gave {res} {losses}, --ann {want_res} "
+                             f"{want_losses}")
+    same_state(pools, want_pools, "16a pools")
+    if not all(np.isfinite(v) for rec in losses for v in rec.values()):
+        raise AssertionError(f"16a: losses {losses}")
+    log(f"16a: --dataset refexp_train equals --ann/--image-root in bits: results {res}, "
+        f"{len(pools)} pool leaves, losses {losses}")
+
+
+def check_level_kernels(dk, gen, records, px):
+    """16b: rows 1f, 2f, 1b and 2b at every level shape of a `px` step
+    (batch 4; `check_window_shapes`), summed over one step's launches into
+    the records (`multi_scale`): per tower conv_same at every level and
+    conv_up at all but the first at stride 1, conv_down from all but the
+    last at stride 2, six towers."""
+    sides = level_sides(px)
+    shapes = {1: {s: (1 if i == 0 else 2) * TOWERS for i, s in enumerate(sides)},
+              2: {s: TOWERS for s in sides[:-1]}}
+    for name, rec in check_window_shapes(dk, gen, records, TRAIN_BATCH, shapes,
+                                         f"{px} px").items():
+        records[name].setdefault("multi_scale", {})[f"{px}px_per_step"] = rec
+        log(f"kernel {name} per {px} px step on {card_line()}: {rec['ms']:.6f} ms against a "
+            f"bound of {rec['bound_ms']:.6f} ms ({100 * rec['bound_ms'] / rec['ms']:.1f}%)")
+
+
+def grouped_steps(dk, fk, cfg, batches):
+    """16b, scale-grouped: a learner (seed 0, `honest_offsets`) runs the
+    first batch at 560 and the first at 800 of `batches_grouped`, then each
+    again, eagerly and captured from the same start under deterministic
+    algorithms: each shape captured in its own graph and replayed, every
+    metric and pool leaf equal in bits, the counters at the eager steps'
+    launches and at the two captures' warm-ups."""
+    from lpi_tpu_torch.bench import honest_offsets
+    from lpi_tpu_torch.continual.grounding_learner import GroundingLearner
+    from lpi_tpu_torch.graphs import WARMUP
+
+    learner = GroundingLearner(cfg, generator=torch.Generator().manual_seed(0), device="cuda")
+    honest_offsets(learner.model)
+    start = {n: p.detach().clone() for n, p in learner.pools.items()}
+    order = [batches[s] for s in GROUPED_SIDES] * 2
+    runs = {}
+    for mode in ("eager", "captured"):
+        with torch.no_grad():
+            for n, p in learner.pools.items():
+                p.copy_(start[n])
+        step = learner.make_step(TRAIN_TASK, steps_per_epoch=len(order),
+                                 epochs=cfg.epochs_per_task, eager=mode == "eager")
+        reset_counts(dk, fk)
+        losses, times = [], []
+        for b in order:
+            t = time.perf_counter()
+            losses.append({k: v.item() for k, v in step(b).items()})
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        calls = len(order) if mode == "eager" else len(GROUPED_SIDES) * (WARMUP + 1)
+        launches, want = launch_counts(dk, fk), expected_counts(dk, fk, cfg, calls, train=True)
+        if launches != want:
+            raise AssertionError(f"16b grouped ({mode}): launches {launches}, want {want}")
+        log(f"16b grouped ({mode}) on {card_line()}: steps at {GROUPED_SIDES * 2} px "
+            f"{[round(x, 3) for x in times]} ms, launch counters {launches} over {calls} host "
+            f"calls; total losses {[round(x['total'], 6) for x in losses]}")
+        runs[mode] = {"losses": losses, "pools": {n: p.detach().clone()
+                                                  for n, p in learner.pools.items()}}
+        del step
+    sides = sorted(dict(k)["images"][1] for k in learner._graphs)
+    if sides != sorted(GROUPED_SIDES):
+        raise AssertionError(f"16b grouped: graphs at {sides}, want one at each of "
+                             f"{GROUPED_SIDES}")
+    same_bits(runs, "16b grouped (two shapes, each in its own graph)")
+    del learner, runs
+    torch.cuda.empty_cache()
+
+
+def multiscale_train_phase(dk, fk, gen, tok, records, ann, images):
+    """16b: multi-scale training at full width (b4, bf16, task 1,
+    `honest_offsets`) on the fabricated RefExp set loaded with
+    `AugmentConfig(multi_scale=MULTI_SCALE)`: a pad-to-max batch (800 px)
+    through `train_phase` (1 + 5 steps a mode, 54 / 24 / 54 / 24, captured
+    equal to eager in bits, median, samples/s, busy share, peak memory),
+    the scale-grouped batches at 560 and 800 (`grouped_steps`), then the
+    window kernels at the level shapes of 800 and 560 px
+    (`check_level_kernels`)."""
+    from lpi_tpu_torch.config import GroundingConfig
+    from lpi_tpu_torch.data.grounding import load_mdetr_refexp
+    from lpi_tpu_torch.data.samplers import padding_waste
+    from lpi_tpu_torch.data.transforms import AugmentConfig
+
+    cfg = GroundingConfig(batch_size=TRAIN_BATCH)
+    aug = AugmentConfig(multi_scale=MULTI_SCALE)
+    t = time.perf_counter()
+    ds = load_mdetr_refexp(ann, images, 0, tok, max_boxes=cfg.max_boxes, augment=aug)
+    padded = next(ds.batches(TRAIN_BATCH, seed=0))
+    grouped = {}
+    for b in ds.duplicated(3).batches_grouped(TRAIN_BATCH, seed=0):
+        grouped.setdefault(b["images"].shape[1], b)
+        if all(s in grouped for s in GROUPED_SIDES):
+            break
+    log(f"16b: {len(ds)} images stored at {aug.padded_size} px, pad-to-max batch "
+        f"{padded['images'].shape}, grouped batches at {sorted(grouped)} px, "
+        f"{time.perf_counter() - t:.3f} s; padding waste of pad-to-max over {MULTI_SCALE}: "
+        f"{padding_waste(MULTI_SCALE, aug.padded_size):.4f}")
+    if padded["images"].shape[1:3] != (800, 800) or not all(s in grouped for s in GROUPED_SIDES):
+        raise AssertionError("16b: the multi-scale batches are not at their shapes")
+    step_records = {name: {} for name in records}
+    train_phase(dk, fk, cfg, tok, step_records, "pallas multi-scale 800 px",
+                n_steps=MULTI_SCALE_STEPS, batch=padded)
+    for name, rec in step_records.items():
+        if rec:
+            records[name].setdefault("multi_scale", {})["800px_step_launches"] = {
+                "host_calls": MULTI_SCALE_STEPS, "launches": rec["launches"],
+                "per_step_by_name": rec["replay_launches_per_step"]}
+    grouped_steps(dk, fk, cfg, grouped)
+    for px in (800, 560):
+        check_level_kernels(dk, gen, records, px)
+
+
+def tta_phase(dk, fk, tok, work):
+    """16c: `eval.tta.multi_scale_detect` over `GroundingPredictor` requests
+    at 448, 560 and 800 px with flips (six forwards; the callback builds one
+    predictor per scale, with seeded task keys of that scale's P7), eagerly
+    and captured: equal merged detections, the forwards' launches by the
+    counters; then the fp32 head outputs at 560 px, card against CPU, at
+    the repo's bar. -> the merged detections (host arrays)."""
+    from lpi_tpu_torch.config import GroundingConfig
+    from lpi_tpu_torch.eval.tta import multi_scale_detect
+    from lpi_tpu_torch.graphs import WARMUP
+    from lpi_tpu_torch.models.glip.grounding import GroundedVLModel, init_parameters
+    from lpi_tpu_torch.serve.predictor import GroundingPredictor
+
+    cfg = GroundingConfig(batch_size=TRAIN_BATCH)
+    model = GroundedVLModel(cfg)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    keys = {s: seeded_keys(cfg, 16, level_sides(s)[-1]) for s in TTA_SCALES}
+    image = np.random.RandomState(16).randint(0, 256, size=(480, 640, 3)).astype(np.uint8)
+    atss = dataclasses.replace(cfg.atss, inference_thresh=0.0)
+    merged, labels = {}, {}
+    for mode in ("eager", "captured"):
+        predictors = {s: GroundingPredictor(model, keys[s], tok, image_size=s, score_thresh=0.0,
+                                            atss_cfg=atss, device="cuda",
+                                            eager=mode == "eager") for s in TTA_SCALES}
+
+        def predict_fn(img, scale, hflip):
+            """Boxes in the resized image's coordinates, as the callback
+            contract has them (the predictor maps them to the image's)."""
+            H, W = img.shape[:2]
+            out = predictors[scale].predict(np.ascontiguousarray(img), CLI_CAPTION)
+            to_resized = np.asarray([scale / W, scale / H] * 2, np.float32)
+            ids = [labels.setdefault(e, len(labels) + 1) for e in out["entities"]]
+            return (out["boxes"] * to_resized, out["scores"], np.asarray(ids, np.int64),
+                    (scale, scale))
+
+        reset_counts(dk, fk)
+        t = time.perf_counter()
+        merged[mode] = multi_scale_detect(predict_fn, image, TTA_SCALES, flip=True)
+        wall = (time.perf_counter() - t) * 1e3
+        calls = 2 * len(TTA_SCALES) if mode == "eager" else len(TTA_SCALES) * (WARMUP + 1)
+        launches = launch_counts(dk, fk)
+        if launches != expected_counts(dk, fk, cfg, calls, train=False):
+            raise AssertionError(f"16c TTA ({mode}): launches {launches} over {calls} forwards")
+        t = time.perf_counter()
+        again = multi_scale_detect(predict_fn, image, TTA_SCALES, flip=True)
+        again_ms = (time.perf_counter() - t) * 1e3
+        for k in merged[mode]:
+            if not np.array_equal(again[k], merged[mode][k]):
+                raise AssertionError(f"16c TTA ({mode}): a second request gave other {k}")
+        out = merged[mode]
+        if not (len(out["boxes"]) > 0 and np.isfinite(out["boxes"]).all()
+                and np.isfinite(out["scores"]).all()):
+            raise AssertionError(f"16c TTA ({mode}): {out}")
+        log(f"16c TTA ({mode}) on {card_line()}: six forwards at {TTA_SCALES} px with flips, "
+            f"first request {wall:.3f} ms, second {again_ms:.3f} ms; launch counters "
+            f"{launches} over {calls} host calls of the forward; {len(out['boxes'])} merged "
+            f"detections, labels {sorted(set(out['labels'].tolist()))}, top score "
+            f"{float(out['scores'].max()):.4f}")
+        if mode == "captured":
+            canvas, _ = predictors[TTA_CPU_SCALE]._prepare_image(image)
+        del predictors
+    for k in merged["eager"]:
+        if not np.array_equal(merged["eager"][k], merged["captured"][k]):
+            raise AssertionError(f"16c TTA: captured and eager merged {k} differ")
+    log(f"16c TTA: captured and eager give the same {len(merged['eager']['boxes'])} merged "
+        f"detections")
+    ids, mask, _ = tok([CLI_CAPTION])
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    compare_heads(fp32_heads(model, cfg32, keys[TTA_CPU_SCALE], canvas, ids, mask, "cuda"),
+                  fp32_heads(model, cfg32, keys[TTA_CPU_SCALE], canvas, ids, mask, "cpu"),
+                  f"{TTA_CPU_SCALE} px, card vs cpu")
+    del model
+    torch.cuda.empty_cache()
+    return merged["captured"]
+
+
+def eval_detection_phase(work, merged):
+    """16d: `eval-detection` with the COCO, LVIS, VOC and Flickr protocols,
+    in this process, on 16c's merged detections written as a predictions
+    json, against a fabricated ground truth (per category, its best
+    detection moved by 3 px, or a box of its own where it has none; one
+    category in each LVIS bin; one box `difficult`): every value finite and
+    equal to the port's evaluator called directly."""
+    from lpi_tpu_torch.eval.coco_ap import evaluate_detections
+    from lpi_tpu_torch.eval.flickr import FlickrEvaluator
+    from lpi_tpu_torch.eval.lvis import LvisEvaluator
+    from lpi_tpu_torch.eval.voc import eval_detection_voc
+
+    boxes = merged["boxes"].astype(np.float64)
+    scores, labels = merged["scores"].astype(np.float64), merged["labels"].astype(np.int64)
+    gt_boxes = []
+    for c in LVIS_COUNTS:
+        mine = np.flatnonzero(labels == c)
+        box = boxes[mine[np.argmax(scores[mine])]] + 3.0 if len(mine) else \
+            np.asarray([40.0 * c, 30.0, 40.0 * c + 120.0, 200.0])
+        gt_boxes.append(box)
+    gt_boxes.append(np.asarray([300.0, 200.0, 420.0, 330.0]))
+    gt_labels = [*LVIS_COUNTS, 1]
+    difficult = [0, 0, 0, 1]
+    gt = {"images": [{"id": 0, "neg_category_ids": [5], "not_exhaustive_category_ids": []}],
+          "categories": [{"id": c, "image_count": n} for c, n in LVIS_COUNTS.items()],
+          "annotations": [{"id": i + 1, "image_id": 0, "category_id": int(l),
+                           "bbox": [float(b[0]), float(b[1]), float(b[2] - b[0]),
+                                    float(b[3] - b[1])], "difficult": d}
+                          for i, (b, l, d) in enumerate(zip(gt_boxes, gt_labels, difficult))]}
+    preds = [{"image_id": 0, "boxes": boxes.tolist(), "scores": scores.tolist(),
+              "labels": labels.tolist()}]
+    phrases = [{"boxes": boxes[labels == c].tolist(), "scores": scores[labels == c].tolist(),
+                "gt_boxes": [gt_boxes[i].tolist()], "phrase_types": ["objects"]}
+               for i, c in enumerate(LVIS_COUNTS)]
+    paths = {}
+    for name, obj in (("gt", gt), ("preds", preds), ("phrases", phrases)):
+        paths[name] = os.path.join(work, f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(obj, f)
+    # the ground truth as the command reads it (xywh back to xyxy)
+    gt_xyxy = [[a["bbox"][0], a["bbox"][1], a["bbox"][0] + a["bbox"][2],
+                a["bbox"][1] + a["bbox"][3]] for a in gt["annotations"]]
+    det = {"boxes": preds[0]["boxes"], "scores": preds[0]["scores"],
+           "labels": preds[0]["labels"]}
+    direct = {}
+    res = evaluate_detections([det], [{"boxes": gt_xyxy, "labels": gt_labels}])
+    res.pop("per_class")
+    direct["coco"] = res
+    ev = LvisEvaluator(category_image_counts=LVIS_COUNTS)
+    ev.update(det["boxes"], det["scores"], det["labels"], gt_xyxy, gt_labels, pos_cats=[],
+              neg_cats=[5])
+    direct["lvis"] = ev.summarize()
+    direct["lvis"].pop("per_class")
+    out = eval_detection_voc([{"boxes": gt_xyxy, "labels": gt_labels, "difficult": difficult}],
+                             [det])
+    direct["voc"] = {"map": out["map"], "ap": {i: float(v) for i, v in enumerate(out["ap"])
+                                               if v == v}}
+    ev = FlickrEvaluator()
+    for p in phrases:
+        ev.update(p["boxes"], p["scores"], p["gt_boxes"], phrase_types=p["phrase_types"])
+    direct["flickr"] = ev.summarize()
+    for protocol in ("coco", "lvis", "voc", "flickr"):
+        source = paths["phrases" if protocol == "flickr" else "preds"]
+        got, wall, _ = run_cli("eval-detection", source, "--gt", paths["gt"], "--protocol",
+                               protocol)
+        values = [v for k, v in got.items() if k != "ap"] + list(got.get("ap", {}).values())
+        if got != direct[protocol] or not all(np.isfinite(v) for v in values):
+            raise AssertionError(f"16d eval-detection {protocol}: {got}, the evaluator "
+                                 f"directly {direct[protocol]}")
+        log(f"16d eval-detection --protocol {protocol}: {wall:.3f} s, {as_json(got)}, equal to "
+            f"the evaluator called directly, every value finite")
+
+
+def multiscale_phase(dk, fk, gen=None, tok=None, records=None):
+    """Phase 16, under deterministic algorithms, in a temporary directory
+    deleted afterwards: 16a `train-grounding --dataset`, 16b multi-scale
+    training and the window kernels at its level shapes, 16c multi-scale
+    TTA, 16d `eval-detection`. Called alone, it makes its own generator,
+    tokenizer and kernel records."""
+    import shutil
+    import tempfile
+
+    from lpi_tpu_torch.bench import deterministic
+    from lpi_tpu_torch.config import BertConfig
+    from lpi_tpu_torch.data.bert_tokenizer import BertTokenizer
+
+    gen = gen or torch.Generator(device="cuda").manual_seed(0)
+    tok = tok or BertTokenizer(max_len=BertConfig().max_query_len,
+                               vocab_size=BertConfig().vocab_size)
+    if records is None:
+        records = {fn.__name__: _record(fn.__name__, "") for fn in (*dk.KERNELS, *fk.KERNELS)}
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_datasets_")
+    try:
+        with deterministic():
+            ann, images = write_refexp(os.path.join(work, "DATASET"))
+            t = time.perf_counter()
+            dataset_phase(dk, fk, work, ann, images)
+            log(f"phase 16a: {time.perf_counter() - t:.3f} s")
+            t = time.perf_counter()
+            multiscale_train_phase(dk, fk, gen, tok, records, ann, images)
+            log(f"phase 16b: {time.perf_counter() - t:.3f} s")
+            t = time.perf_counter()
+            merged = tta_phase(dk, fk, tok, work)
+            log(f"phase 16c: {time.perf_counter() - t:.3f} s")
+            t = time.perf_counter()
+            eval_detection_phase(work, merged)
+            log(f"phase 16d: {time.perf_counter() - t:.3f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2583,6 +3049,11 @@ def main() -> int:
     t = time.perf_counter()
     mesh_phase()
     log(f"phase 15: {time.perf_counter() - t:.3f} s")
+
+    # ---- datasets, multi-scale training and TTA, eval-detection ----------
+    t = time.perf_counter()
+    multiscale_phase(dk, fk, gen, tok, records)
+    log(f"phase 16: {time.perf_counter() - t:.3f} s")
 
     for rec in records.values():
         kinds = rec.pop("bound_kinds")

@@ -5,6 +5,7 @@ sessions, the grounding demo and result post-processing.
     python -m lpi_tpu_torch.cli.main train --synthetic --sessions 2 --epochs 1
     torchrun --nproc-per-node 2 -m lpi_tpu_torch.cli.main train --synthetic
     python -m lpi_tpu_torch.cli.main train-grounding --synthetic --tasks 2 --epochs 1
+    DATASET=/data python -m lpi_tpu_torch.cli.main train-grounding --dataset refexp_train
     python -m lpi_tpu_torch.cli.main eval-all --synthetic --grounding \\
         --checkpoint-dir checkpoints_grounding
     python -m lpi_tpu_torch.cli.main predict image.png "a dog on a bench" \\
@@ -12,6 +13,7 @@ sessions, the grounding demo and result post-processing.
     python -m lpi_tpu_torch.cli.main predict image.png --classes dog,bench \\
         --knowledge-file knowledge.json
     python -m lpi_tpu_torch.cli.main report res/<timestamp>.json --metric i2t
+    python -m lpi_tpu_torch.cli.main eval-detection preds.json --gt gt.json --protocol lvis
 
 Every command that runs a model runs it on the card; `--platform cpu` runs
 it on the CPU (the kernels' plain versions), and without a card and without
@@ -35,9 +37,15 @@ under torchrun with more than one rank it refuses, naming the reason.
 
 `predict --classes` runs GLIP-KNOW's detection mode
 (`GroundingPredictor.predict_classes`) with the config's `knowledge`
-settings. The commands whose modules are not ported yet (`serve`,
-`eval-detection`, `fetch-weights`, `train-grounding --dataset`) stay in the
-parser and exit non-zero, naming their ROADMAP item.
+settings. `train-grounding --dataset NAME` resolves a catalog name
+(`data/catalog.py`; mdetr-format names only) to its annotation json and
+image directory, each found by `try_to_find` in the working directory,
+`$DATASET`, then ./DATASET, ./OUTPUT, ./data and ./MODEL, and runs as with
+`--ann/--image-root`. `eval-detection` scores a predictions json against a
+ground-truth json with the COCO, LVIS, VOC or Flickr30k protocol
+(`eval/{coco_ap,lvis,voc,flickr}.py`, host numpy). The commands whose
+modules are not ported yet (`serve`, `fetch-weights`) stay in the parser
+and exit non-zero, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -51,11 +59,8 @@ import torch
 
 NOT_PORTED = {
     "serve": "serve (the gradio webui) is not ported yet (ROADMAP §A.3)",
-    "eval-detection": "eval-detection (the COCO, LVIS, Flickr and VOC evaluators) is not "
-                      "ported yet (ROADMAP §A.6)",
     "fetch-weights": "fetch-weights (core/fetch.py) is not ported yet (ROADMAP §A.5)",
 }
-DATASET_NOT_PORTED = "--dataset needs data/catalog.py, which is not ported yet (ROADMAP §A.3)"
 ONE_PROCESS = ("{command} runs in one process, as in the JAX package, which builds no mesh "
                "for it; under torchrun only `train` takes more than one rank "
                "(WORLD_SIZE={world})")
@@ -87,7 +92,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--ann", default=None, help="mdetr refexp annotation json")
     g.add_argument("--image-root", default=None)
     g.add_argument("--dataset", default=None,
-                   help="catalog name (e.g. refexp_train); not ported yet")
+                   help="catalog name of an mdetr-format set (e.g. refexp_train)")
     g.add_argument("--glip-ckpt", default=None, help="GLIP-T .pth to convert")
     g.add_argument("--bert-vocab", default=None)
     g.add_argument("--task-sim", default=None)
@@ -145,13 +150,16 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--dataset", default="mscoco")
     r.add_argument("--sessions", type=int, default=12)
 
-    ed = sub.add_parser("eval-detection",
-                        help="score a predictions json against GT (not ported yet)")
-    ed.add_argument("predictions")
-    ed.add_argument("--gt", required=True)
+    ed = sub.add_parser("eval-detection", help="score a predictions json against GT")
+    ed.add_argument("predictions", help="json: per-image records {image_id, boxes (xyxy), "
+                                        "scores, labels}; flickr: per-phrase {boxes, scores, "
+                                        "gt_boxes, phrase_types}")
+    ed.add_argument("--gt", required=True, help="COCO-format ground-truth json (LVIS: with "
+                                                "image_count and the federated id lists)")
     ed.add_argument("--protocol", default="coco", choices=["coco", "lvis", "flickr", "voc"])
     ed.add_argument("--max-dets", type=int, default=None)
-    ed.add_argument("--merge-boxes", action="store_true")
+    ed.add_argument("--merge-boxes", action="store_true",
+                    help="flickr: merge each phrase's GT boxes into one")
 
     fw = sub.add_parser("fetch-weights", help="download and convert pretrained weights "
                                               "(not ported yet)")
@@ -301,10 +309,17 @@ def cmd_train_grounding(args):
     from lpi_tpu_torch.core.checkpoint import SessionCheckpointer
     from lpi_tpu_torch.core.logging import MetricLogger, save_results_json, setup_logging
 
+    if not args.synthetic and not args.dataset and not (args.ann and args.image_root):
+        raise SystemExit("need --dataset, --ann/--image-root, or --synthetic")
     if args.dataset:
-        raise SystemExit(DATASET_NOT_PORTED)
-    if not args.synthetic and not (args.ann and args.image_root):
-        raise SystemExit("need --ann/--image-root (or --synthetic)")
+        from lpi_tpu_torch.data.catalog import CATALOG, try_to_find
+
+        spec = CATALOG.get(args.dataset)
+        if spec.kind != "mdetr":
+            raise SystemExit(f"--dataset {args.dataset} is {spec.kind}-kind; "
+                             "train-grounding takes an mdetr-format name")
+        args.ann = try_to_find(spec.ann_file)
+        args.image_root = try_to_find(spec.img_dir)
     log = setup_logging(args.output_dir)
     gcfg = load_config(args.config).grounding
     tasks = args.tasks or gcfg.total_tasks
@@ -475,8 +490,86 @@ def cmd_report(args) -> dict:
     return res
 
 
+def cmd_eval_detection(args) -> dict:
+    """Score detection or grounding predictions with the reference's
+    protocols: COCO mAP (`eval/coco_ap.py`), federated LVIS AP with its
+    r/c/f bins (`eval/lvis.py`), VOC's 07 mAP (`eval/voc.py`) or Flickr30k
+    phrase Recall@k (`eval/flickr.py`). Ground-truth boxes are COCO xywh.
+    -> the metrics (without per-class values), also printed."""
+    with open(args.predictions) as f:
+        preds = json.load(f)
+
+    if args.protocol == "flickr":
+        from lpi_tpu_torch.eval.flickr import FlickrEvaluator
+
+        ev = FlickrEvaluator(merge_gt_boxes=args.merge_boxes)
+        for rec in preds:
+            ev.update(rec["boxes"], rec["scores"], rec["gt_boxes"],
+                      phrase_types=rec.get("phrase_types"))
+        res = ev.summarize()
+        print(json.dumps(res, indent=2))
+        return res
+
+    with open(args.gt) as f:
+        gt = json.load(f)
+    anns_by_img = {}
+    for a in gt.get("annotations", []):
+        anns_by_img.setdefault(a["image_id"], []).append(a)
+
+    def gt_record(image_id):
+        anns = anns_by_img.get(image_id, [])
+        boxes = [[a["bbox"][0], a["bbox"][1], a["bbox"][0] + a["bbox"][2],
+                  a["bbox"][1] + a["bbox"][3]] for a in anns]
+        return boxes, [a["category_id"] for a in anns]
+
+    def detections(rec):
+        return {"boxes": rec["boxes"], "scores": rec["scores"], "labels": rec["labels"]}
+
+    if args.protocol == "lvis":
+        from lpi_tpu_torch.eval.lvis import LvisEvaluator
+
+        counts = {c["id"]: c.get("image_count", 100) for c in gt.get("categories", [])}
+        ev = LvisEvaluator(category_image_counts=counts, max_dets=args.max_dets or 300)
+        img_meta = {im["id"]: im for im in gt.get("images", [])}
+        for rec in preds:
+            boxes, labels = gt_record(rec["image_id"])
+            meta = img_meta.get(rec["image_id"], {})
+            pos = meta.get("not_exhaustive_category_ids")
+            neg = meta.get("neg_category_ids")
+            federated = pos is not None or neg is not None
+            ev.update(rec["boxes"], rec["scores"], rec["labels"], boxes, labels,
+                      pos_cats=(pos or []) if federated else None,
+                      neg_cats=(neg or []) if federated else None)
+        res = ev.summarize()
+    elif args.protocol == "voc":
+        from lpi_tpu_torch.eval.voc import eval_detection_voc
+
+        gts = []
+        for rec in preds:
+            boxes, labels = gt_record(rec["image_id"])
+            gts.append({"boxes": boxes, "labels": labels,
+                        "difficult": [a.get("difficult", 0)
+                                      for a in anns_by_img.get(rec["image_id"], [])]})
+        out = eval_detection_voc(gts, [detections(rec) for rec in preds])
+        res = {"map": out["map"],
+               "ap": {i: float(v) for i, v in enumerate(out["ap"]) if v == v}}
+    else:
+        from lpi_tpu_torch.eval.coco_ap import evaluate_detections
+
+        gts = []
+        for rec in preds:
+            boxes, labels = gt_record(rec["image_id"])
+            gts.append({"boxes": boxes, "labels": labels})
+        res = evaluate_detections([detections(rec) for rec in preds], gts,
+                                  max_dets=args.max_dets or 100)
+    res.pop("per_class", None)
+    print(json.dumps(res, indent=2))
+    return res
+
+
 COMMANDS = {"train": cmd_train, "train-grounding": cmd_train_grounding,
             "predict": cmd_predict, "eval": cmd_eval, "eval-all": cmd_eval_all}
+HOST_COMMANDS = {"report": cmd_report, "eval-detection": cmd_eval_detection}  # no model
 
 
 def _start_group(args):
@@ -500,8 +593,8 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.command in NOT_PORTED:
         raise SystemExit(NOT_PORTED[args.command])
-    if args.command == "report":  # host only
-        return cmd_report(args)
+    if args.command in HOST_COMMANDS:
+        return HOST_COMMANDS[args.command](args)
     if "WORLD_SIZE" in os.environ:
         _start_group(args)
     if getattr(args, "mesh", None) is None:

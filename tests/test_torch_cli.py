@@ -8,7 +8,9 @@ writes; the other commands refuse more than one rank; `eval`, `eval-all` (both k
 and `predict` then restore from those checkpoints in fresh learners and
 must give exactly what the training run recorded or computed; `report`
 gives the JAX package's `get_res` on the same file. The result files carry
-the JAX command line's schema. The commands whose modules are not ported
+the JAX command line's schema. `train-grounding --dataset` equals the same
+run by `--ann/--image-root` and refuses a name that is not mdetr-format
+with the JAX package's words. The commands whose modules are not ported
 exit non-zero naming their ROADMAP item; without a card the default
 platform refuses to run.
 """
@@ -316,12 +318,85 @@ def test_the_eval_all_check_sees_a_faulty_restore(grounding, config99, kept):
     assert not _same_heads(got, trained[len(trained) - len(got):])
 
 
+# ---- train-grounding --dataset ------------------------------------------------
+def _refexp_dataset(root):
+    """A RefExp set in mdetr's format where the catalog looks for
+    `refexp_train`: eight PNGs of task 0 (appliance) and two of task 1
+    under `coco/train2014`, the json under `mdetr_annotations`."""
+    images = root / "coco" / "train2014"
+    images.mkdir(parents=True)
+    (root / "mdetr_annotations").mkdir()
+    rng = np.random.RandomState(0)
+    entries, anns = [], []
+    for i in range(10):
+        name = f"COCO_train2014_{i:012d}.jpg"
+        Image.fromarray(rng.randint(0, 256, (40 + 3 * i, 56 - 2 * i, 3)).astype(np.uint8)).save(
+            images / name)
+        entries.append({"id": i, "file_name": name, "caption": "the toaster next to a kettle"})
+        anns.append({"id": i + 1, "image_id": i, "category_id": 2 if i >= 8 else 1,
+                     "bbox": [2.0 + i, 3.0, 20.0, 15.5], "tokens_positive": [[4, 11]]})
+    ann = {"images": entries, "annotations": anns,
+           "categories": [{"id": 1, "name": "toaster", "supercategory": "appliance"},
+                          {"id": 2, "name": "ball", "supercategory": "sports"}]}
+    (root / "mdetr_annotations" / "finetune_refcoco_train.json").write_text(json.dumps(ann))
+    return str(root / "mdetr_annotations" / "finetune_refcoco_train.json"), str(images)
+
+
+def _losses(directory):
+    with open(os.path.join(directory, "metrics.jsonl")) as f:
+        return [{k: v for k, v in json.loads(line).items() if k not in ("samples_per_sec", "time")}
+                for line in f]
+
+
+def test_train_grounding_dataset_equals_ann(config, tmp_path, monkeypatch):
+    """`--dataset refexp_train`, its files found through $DATASET, gives the
+    `--ann/--image-root` run on the same files in bits: the results, every
+    pool leaf and the losses in metrics.jsonl."""
+    ann, images = _refexp_dataset(tmp_path / "data")
+    monkeypatch.setenv("DATASET", str(tmp_path / "data"))
+    runs = {}
+    for how, source in (("dataset", ["--dataset", "refexp_train"]),
+                        ("ann", ["--ann", ann, "--image-root", images])):
+        d = tmp_path / how
+        path, learner = _run("train-grounding", *source, "--tasks", "1", "--epochs", "1",
+                             "--config", config, "--output-dir", str(d / "res"),
+                             "--checkpoint-dir", str(d / "ckpt"))
+        with open(path) as f:
+            runs[how] = (json.load(f), learner.pools, _losses(d / "res"))
+    (res, pools, losses), (jres, jpools, jlosses) = runs["dataset"], runs["ann"]
+    assert res == jres and list(res) == ["0"]
+    assert losses == jlosses and len(losses) == 1 and np.isfinite(losses[0]["total"])
+    assert set(pools) == set(jpools)
+    for n in pools:
+        assert torch.equal(pools[n], jpools[n]), n
+
+
+@pytest.mark.parametrize("name", ["coco_grounding_train", "lvis_val", "vg_dt_train",
+                                  "objects365_odtsv_val"])
+def test_train_grounding_refuses_a_dataset_that_is_not_mdetr(name):
+    """A coco- or tsv-kind catalog name is refused with the JAX package's
+    words, before any file is looked for."""
+    from lpi_tpu.cli.main import main as jmain
+
+    with pytest.raises(SystemExit) as got:
+        _run("train-grounding", "--dataset", name)
+    with pytest.raises(SystemExit) as want:
+        jmain(["train-grounding", "--dataset", name])
+    assert got.value.code == want.value.code
+    assert "-kind; train-grounding takes an mdetr-format name" in got.value.code
+
+
+def test_train_grounding_dataset_names_the_missing_file(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("DATASET", raising=False)
+    with pytest.raises(FileNotFoundError, match="finetune_refcoco_val.json"):
+        _run("train-grounding", "--dataset", "refexp_val")
+
+
 # ---- what is not ported, and the platform -------------------------------------
 @pytest.mark.parametrize("argv,item", [
     (["serve"], "§A.3"),
-    (["eval-detection", "p.json", "--gt", "g.json"], "§A.6"),
     (["fetch-weights", "--list"], "§A.5"),
-    (["train-grounding", "--dataset", "refexp_train"], "§A.3"),
 ])
 def test_unported_commands_exit_naming_their_roadmap_item(argv, item):
     with pytest.raises(SystemExit) as e:

@@ -25,6 +25,7 @@ from lpi_tpu.data.tokenizer import ClipTokenizer as JClipTokenizer
 from lpi_tpu_torch.data import coco as tcoco
 from lpi_tpu_torch.data.bert_tokenizer import BertTokenizer
 from lpi_tpu_torch.data.grounding import load_mdetr_refexp
+from lpi_tpu_torch.data.transforms import AugmentConfig
 from lpi_tpu_torch.data.tokenizer import ClipTokenizer
 
 torch.set_num_threads(1)
@@ -88,8 +89,8 @@ def test_load_mdetr_refexp_matches_jax(files, task):
     want = j_load_mdetr_refexp(ann, root, task, JBertTokenizer(max_len=16, vocab_size=512),
                                image_size=32, max_boxes=3)
     assert len(got) == len(want) == (2 if task < 2 else 0)
-    assert want.augment == JAugmentConfig(image_size=32)  # the defaults the port hardcodes
-    assert got.augment_size == 32
+    assert want.augment == JAugmentConfig(image_size=32)
+    assert got.augment == AugmentConfig(image_size=32)
     for a, b in zip(got.examples, want.examples):
         assert (a.caption, a.token_spans, a.task_index) == (b.caption, b.token_spans,
                                                               b.task_index)

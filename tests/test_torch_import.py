@@ -1,4 +1,5 @@
-"""The PyTorch port imports neither JAX nor the JAX package."""
+"""The PyTorch port imports neither JAX nor the JAX package, and PyYAML
+only when `data.tsv.TSVDataset.from_yaml` reads a shard descriptor."""
 
 import os
 import subprocess
@@ -18,7 +19,7 @@ for name in names:
 runpy_ns = {"__name__": "chip_smoke_probe"}
 exec(compile(open("chip_smoke.py").read(), "chip_smoke.py", "exec"), runpy_ns)
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "flax", "lpi_tpu"))
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "lpi_tpu", "yaml"))
 print(len(names), bad)
 """
 

@@ -949,3 +949,77 @@ def test_world_size_one_captured_step_equals_the_step_without_a_mesh(card, tmp_p
 
     out = run_world(captured_leg, 1, "gpu", workdir=str(tmp_path))[0]
     assert out == {"backend": "nccl", "graphs": (0, 1), "metrics": True, "pools": True}
+
+
+# ---- multi-scale training and test-time augmentation --------------------------
+def _levels(px: int) -> list:
+    """The head's five level sides at a `px` input (strides 8 to 128, each
+    level the ceiling of half the one before): 100, 50, 25, 13, 7 at 800."""
+    sides = [-(-px // 8)]
+    while len(sides) < 5:
+        sides.append(-(-sides[-1] // 2))
+    return sides
+
+
+def _level_cases():
+    """(px, stride, side): stride 1 at every level, stride 2 from every
+    level but the last (the towers' conv_down), at 800 and 560 px."""
+    return [(px, stride, side) for px in (800, 560) for stride in (1, 2)
+            for side in (_levels(px) if stride == 1 else _levels(px)[:-1])]
+
+
+@pytest.mark.parametrize("px,stride,side", _level_cases())
+def test_window_kernels_at_multi_scale_levels_match_plain(card, px, stride, side):
+    """Rows 1f, 2f, 1b and 2b at batch 4, bf16 maps, Cout 256, at the level
+    shapes of an 800 or 560 px step (odd sides, none a multiple of the 1b
+    strips' four pixels): one launch a call, two calls equal bit for bit,
+    within the bars of the other kernel tests."""
+    rng = np.random.RandomState(side + stride)
+    fn, ref = _forward(stride)
+    h, oy, ox, g = _inputs(rng, side, side, 256, stride, B=4)
+    h = h.to(torch.bfloat16)
+    _held_forward(fn, (h, oy, ox, g, 3, 9), ref(h, oy, ox, g, 3, 9))
+    bwd = (tdk.window_accumulate_taps_inpad_backward if stride == 1
+           else tdk.window_accumulate_taps_s2_backward)
+    bref = (tdk.window_accumulate_taps_inpad_backward_reference if stride == 1
+            else tdk.window_accumulate_taps_s2_backward_reference)
+    ct = torch.from_numpy(rng.randn(*oy.shape[:1], *oy.shape[2:], 256).astype(np.float32)).cuda()
+    before = bwd.launches
+    got = bwd(h, oy, ox, g, ct, 3, 9)
+    again = bwd(h, oy, ox, g, ct, 3, 9)
+    torch.cuda.synchronize()
+    assert bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _held_backward(got, bref(h.float(), oy, ox, g, ct, 3, 9))
+
+
+def test_scale_grouped_captured_step_equals_eager(card):
+    """The gate's config on scale-grouped batches at two shapes (48 and 64
+    px, `batches_grouped`): eager and captured steps from the same seeded
+    weights under deterministic algorithms, equal bit for bit; one capture
+    per shape, a shape seen before replayed."""
+    from lpi_tpu_torch.bench import deterministic
+    from lpi_tpu_torch.data.bert_tokenizer import BertTokenizer
+    from lpi_tpu_torch.data.grounding import GroundingTaskSet, synthetic_grounding_task
+    from lpi_tpu_torch.data.transforms import AugmentConfig
+
+    eager, captured = _gate_learners("pallas")
+    tok = BertTokenizer(max_len=16, vocab_size=512)
+    base = synthetic_grounding_task(1, 24, 56, tok)
+    ds = GroundingTaskSet(base.examples, tok, max_boxes=eager.cfg.max_boxes, task_index=1,
+                          augment=AugmentConfig(image_size=64, multi_scale=(48, 64)))
+    batches = list(ds.batches_grouped(eager.cfg.batch_size, seed=0))
+    sides = [b["images"].shape[1] for b in batches]
+    assert set(sides) == {48, 64} and len(sides) > 2
+    with deterministic():
+        steps = [eager.make_step(1, steps_per_epoch=2, epochs=2, eager=True),
+                 captured.make_step(1, steps_per_epoch=2, epochs=2)]
+        for batch in batches:
+            want, got = (s(batch) for s in steps)
+            for k in want:
+                assert torch.equal(got[k], want[k]), k
+    assert sorted(dict(k)["images"][1] for k in captured._graphs) == [48, 64]
+    assert not eager._graphs
+    theirs = dict(eager.model.named_parameters())
+    for name, p in captured.model.named_parameters():
+        assert torch.equal(p, theirs[name]), name

@@ -90,7 +90,8 @@ def pair():
                               init_params=params_from_jax(jax.tree.map(np.asarray, jl.params),
                                                           depths=(2, 2, 2, 2)),
                               device="cpu")
-    return dict(jl=jl, tl=tl, batch=batch, flat=flat, language=language, vis_p=vis_p,
+    return dict(jl=jl, tl=tl, batch=batch, forward_and_grads=forward_and_grads, pools=pools,
+                frozen=frozen, flat=flat, language=language, vis_p=vis_p,
                 txt_p=txt_p, total=total, metrics=metrics, grads=_torch_names(grads),
                 pool_names=set(_torch_names(pools)))
 
@@ -283,14 +284,15 @@ def test_synthetic_batches_equal_jax(task, drop):
 
 
 def test_augment_is_not_ported_yet():
-    """Only the reference's default augmentation is ported (restrict-resize,
-    flip at 0.5, BGR*255 normalisation); its colour jitter and multi-scale
-    knobs are not ported yet. A task set with `augment_size` gives the JAX
-    package's train and eval batches (with `AugmentConfig(image_size)`)
-    exactly."""
+    """The name predates the port of the augmentation knobs. A task set with
+    `augment=AugmentConfig(48)` (the restrict-resize, flip at 0.5, BGR*255
+    normalisation) gives the JAX package's train and eval batches exactly;
+    `tests/test_torch_datasets.py` holds the jitter and the multi-scale
+    sizes."""
     from lpi_tpu.data.transforms import AugmentConfig as JAugment
+    from lpi_tpu_torch.data.transforms import AugmentConfig
 
-    ds = dataclasses.replace(_tasks(0, n=3), augment_size=48)
+    ds = dataclasses.replace(_tasks(0, n=3), augment=AugmentConfig(image_size=48))
     jds = JTaskSet(ds.examples, JTokenizer(max_len=16, vocab_size=512), max_boxes=ds.max_boxes,
                    task_index=0, augment=JAugment(image_size=48))
     for got, want in zip(ds.batches(2, seed=3, drop_remainder=False),
@@ -303,3 +305,81 @@ def test_augment_is_not_ported_yet():
         assert (n, idx) == (jn, jidx)
         for k in want:
             np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_multi_scale_steps_match_jax_with_one_graph_per_shape(pair, monkeypatch):
+    """Multi-scale training at the tiny config, scales (48, 64): a
+    pad-to-max batch (64 px, the shape of the module's JAX compile) and a
+    scale-grouped batch at 48 px (one more JAX compile), equal on both
+    sides, give the JAX package's losses and task-1 pool gradients within
+    the repo's relative 1e-4, through `_losses` and through the port's
+    session step. The step is driven as on the card, with capture on and
+    `Graphed` replaced by a recorder that runs eagerly: each new shape
+    makes one graph and a shape seen before replays its own."""
+    from lpi_tpu.data.transforms import AugmentConfig as JAugment
+    from lpi_tpu_torch.data.transforms import AugmentConfig
+
+    jl = pair["jl"]
+    kw = dict(image_size=64, multi_scale=(48, 64))
+    jbase = j_synthetic(TASK, num_samples=6, image_size=40,
+                        tokenizer=JTokenizer(max_len=16, vocab_size=512))
+    jds = JTaskSet(jbase.examples, jbase.tokenizer, max_boxes=4, task_index=TASK,
+                   augment=JAugment(**kw))
+    ds = GroundingTaskSet(jbase.examples, BertTokenizer(max_len=16, vocab_size=512), max_boxes=4,
+                          task_index=TASK, augment=AugmentConfig(**kw))
+    padded = next(ds.batches(2, seed=0))
+    grouped = next(b for b in ds.batches_grouped(2, seed=1) if b["images"].shape[1] == 48)
+    for got, want in ((padded, next(jds.batches(2, seed=0))),
+                      (grouped, next(b for b in jds.batches_grouped(2, seed=1)
+                                     if b["images"].shape[1] == 48))):
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+    assert padded["images"].shape[1:3] == (64, 64)
+
+    tl = tgl.GroundingLearner(_tiny(tc), task_sim_matrix=np.eye(3), device="cpu",
+                              init_params=params_from_jax(jax.tree.map(np.asarray, jl.params),
+                                                          depths=(2, 2, 2, 2)))
+    names = sorted(tl.pools)
+    start = {n: p.detach().clone() for n, p in tl.pools.items()}
+    losses_and_grads = {64: lambda p, f, b: pair["forward_and_grads"](p, f, b)[1],
+                        48: jax.jit(lambda p, f, b: jax.value_and_grad(
+                            jl._losses, has_aux=True)(p, f, b, TASK))}
+    want = {}
+    for side, batch in ((64, padded), (48, grouped)):
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        (total, metrics), grads = losses_and_grads[side](pair["pools"], pair["frozen"], jb)
+        want[side] = dict(metrics, total=total)
+        got_total, got_metrics = tl._losses(tl.to_device(batch), TASK)
+        got_grads = torch.autograd.grad(got_total, [tl.pools[n] for n in names])
+        _assert_close(np.float64(got_total.item()), np.float64(total))
+        jgrads = _torch_names(grads)
+        _assert_close(np.concatenate([g.numpy().ravel() for g in got_grads]),
+                      np.concatenate([jgrads[n].numpy().ravel() for n in names]))
+        for n, g in zip(names, got_grads):
+            _assert_close(g.numpy(), jgrads[n].numpy())
+
+    made, replays = [], []
+
+    class Recorder:
+        def __init__(self, fn, inputs, state=()):
+            made.append(tuple(inputs["images"].shape))
+            self.fn = fn
+
+        def __call__(self, batch):
+            replays.append(tuple(np.shape(batch["images"])))
+            return self.fn(tl.to_device(batch))
+
+    monkeypatch.setattr(tgl, "captures", lambda device: True)
+    monkeypatch.setattr(tgl, "Graphed", Recorder)
+    step = tl.make_step(TASK, steps_per_epoch=3, epochs=1)
+    for side, batch in ((64, padded), (48, grouped), (64, padded)):
+        with torch.no_grad():
+            for n, p in tl.pools.items():
+                p.copy_(start[n])
+        metrics = step(batch)
+        for key in ("total", "loss_reg", "loss_centerness", "loss_dot_product_token",
+                    "alignment_loss", "task_loss"):
+            _assert_close(np.float64(metrics[key].item()), np.float64(want[side][key]))
+    assert made == [(2, 64, 64, 3), (2, 48, 48, 3)]
+    assert replays == [(2, 64, 64, 3), (2, 48, 48, 3), (2, 64, 64, 3)]
+    assert len(tl._graphs) == 2
