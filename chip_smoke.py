@@ -17,18 +17,19 @@ non-zero):
        level's share of the bound;
 3. drive the full-width GLIP-T + LPI grounding predictor
    (`lpi_tpu_torch.serve.predictor.GroundingPredictor`, `GroundingConfig()`
-   defaults, seeded random weights and task keys) through 1 + 11 requests
-   eagerly and 1 + 11 captured (its task-id pass and forward replayed as
+   defaults, seeded random weights and task keys) through 1 + 5 requests
+   eagerly and 1 + 5 captured (its task-id pass and forward replayed as
    CUDA graphs), with the kernels' launch counters checked, one request of
    each profiled with its deform launches read from the kernel names, the
    median latency of each, and equal task ids and detections;
 4. run the same model in fp32 on the card and on the CPU (plain versions)
-   and compare the head outputs and the inferred task id;
+   and compare the head outputs and the inferred task id (the head's first
+   2 of 6 towers on both sides, `cpu_depth_cut`);
 5. drive the full-width continual-grounding train step
    (`lpi_tpu_torch.continual.grounding_learner.GroundingLearner`, batch 4,
    448 px, bf16, task 1, offsets of a trained model's size from
-   `lpi_tpu_torch.bench.honest_offsets`) for 1 + 10 steps eagerly and 1 +
-   10 captured from the same starting state, under deterministic
+   `lpi_tpu_torch.bench.honest_offsets`) for 1 + 5 steps eagerly and 1 +
+   5 captured from the same starting state, under deterministic
    algorithms: the launch counters, every metric and pool leaf captured
    against eager in bits (else the repo's bar, the largest error printed),
    the frozen parameters and the other tasks' pool rows unchanged, and per
@@ -36,7 +37,8 @@ non-zero):
    kernels, peak memory; the replayed step's deform launches read from
    the kernel names (54 / 24 / 54 / 24);
 6. compute one fp32 `_losses` and its pool gradients at batch 1 on the card
-   and on the CPU from the same seeded weights and compare them, the
+   and on the CPU from the same seeded weights (the head cut to 2 towers on
+   both sides, `cpu_depth_cut`) and compare them, the
    concatenated gradient and each leaf's (a leaf over the bar read again
    with every module's output on the CPU set to the card's, which puts
    both backwards on the same side of the network's kinks).
@@ -78,8 +80,8 @@ plain torch ops, as they are XLA code in the JAX package):
 
    9.  drive the full-width retrieval train step
        (`lpi_tpu_torch.continual.learner.RetrievalLearner`,
-       `RetrievalConfig()`: 224 px, batch 64, bf16, task 1) for 1 + 20
-       steps eagerly and 1 + 20 captured from the same starting state on
+       `RetrievalConfig()`: 224 px, batch 64, bf16, task 1) for 1 + 10
+       steps eagerly and 1 + 10 captured from the same starting state on
        `bench_retrieval`'s inputs, under deterministic algorithms: losses
        finite, captured against eager in bits, the current pool slices
        moved, the other slices and every tower parameter bit-identical, no
@@ -131,7 +133,7 @@ weights, under deterministic algorithms:
 
    13. 13a: the retrieval step of phase 9 at `RetrievalConfig()` with the
        lpi section of `sprompts.json`, of `l2p.json` and with
-       `prompt_type="clip"`: 1 + 5 steps eager and 1 + 5 captured from
+       `prompt_type="clip"`: 1 + 3 steps eager and 1 + 3 captured from
        the same start, losses finite with the type's keys (the auxiliary
        losses are "lpi"'s alone), captured equal to eager in bits, only
        row 1 of every pool leaf moved (L2P's shared pool included), no
@@ -140,7 +142,7 @@ weights, under deterministic algorithms:
        or the named error where the reference has no L2P evaluation; 13b:
        phase 9b's fp32 loss and pool gradient, card vs CPU, for S-Prompts
        and L2P, with L2P's chosen entries equal; 13c: phase 5's step
-       ("pallas", batch 4, `honest_offsets`, 1 + 5 steps a mode) with the
+       ("pallas", batch 4, `honest_offsets`, 1 + 3 steps a mode) with the
        grounding section of `sprompts.json` and with `maple.json` (54 / 24 /
        54 / 24 launches by
        the counters and by kernel name, captured equal to eager in bits,
@@ -171,7 +173,7 @@ full width with seeded weights:
        and a knowledge json written to a temporary directory, eager and
        captured, equal, 54 / 24 a forward; 14d: the plain head (no
        deformable conv, fusion or DyReLU) and the "exact" route, one request
-       each, no deform kernel launched, fp32 card vs CPU; 14e:
+       each, no deform kernel launched, fp32 card vs CPU (2 towers, `cpu_depth_cut`); 14e:
        `check_deform_clipping` under its 1% warning at the seeded offsets
        (at 448 px a few offsets of the seeded convs pass +-3) and
        over it with the offset convs scaled, read at `honest_offsets`
@@ -182,11 +184,11 @@ processes started by `lpi_tpu_torch.dryrun.run_world`, so that no process
 group touches the other phases:
 
    15. 15a: one NCCL rank on the card, a (1, 1) (data, model) mesh, the
-       retrieval step at `RetrievalConfig()` (b64, task 1) 1 + 5 steps a
+       retrieval step at `RetrievalConfig()` (b64, task 1) 1 + 3 steps a
        mode: a learner without a mesh and one on the mesh (its collectives
        inside the graph), each eager and captured, all four equal in bits,
        no deform kernel launched; 15b: the same for the grounding step at
-       `GroundingConfig()` (b4, "pallas", `honest_offsets`, 1 + 3 steps),
+       `GroundingConfig()` (b4, "pallas", `honest_offsets`, 1 + 2 steps),
        54 / 24 / 54 / 24 window launches a step by counter and by kernel
        name in a profiled call; each mode's median, busy share and peak
        memory side by side; 15c: with two cards, both steps on 2 NCCL
@@ -208,7 +210,7 @@ after it:
        launched in each; 16b: multi-scale training at full width (b4, bf16,
        task 1, `honest_offsets`) on that set loaded with
        `AugmentConfig(multi_scale=(480, 560, 640, 720, 800))`: a pad-to-max
-       batch at 800 px through phase 5's step (1 + 5 steps eager and 1 + 5
+       batch at 800 px through phase 5's step (1 + 3 steps eager and 1 + 3
        captured, equal in bits, 54 / 24 / 54 / 24 by counter and by kernel
        name, median, samples/s, busy share, peak memory); the first
        scale-grouped batches at 560 and 800 px (`batches_grouped`), each
@@ -220,11 +222,40 @@ after it:
        `eval.tta.multi_scale_detect` over `GroundingPredictor` requests at
        448, 560 and 800 px with flips (six forwards), eager and captured,
        equal merged detections, the forwards' launches by the counters,
-       then the fp32 head outputs at 560 px, card vs CPU, at phase 4's bar;
+       then the fp32 head outputs at 560 px, card vs CPU, at phase 4's bar
+       (2 towers, `cpu_depth_cut`);
        16d: `eval-detection` with the COCO, LVIS, VOC and Flickr protocols
        on 16c's detections written as a predictions json against a
        fabricated ground truth, every value finite and equal to the
        evaluator called directly.
+
+The detector zoo (`lpi_tpu_torch/models/glip/{resnet,swin,swin_variants,
+efficientnet,fbnet,fcos,retina,atss_head,roi_heads,roi_mask_keypoint}.py`,
+`ops/{roi_align,deform_pool,nms}.py`, `native.py`), published widths, 80
+classes, seeded weights; plain PyTorch, no kernel of the repo:
+
+   17. 17a: ResNet-50, Swin-T (v1, v2 and VL with a 256-token, 768-wide
+       padded text), FBNet-C at 800x1216 and EfficientNet-B0 + BiFPN (64
+       channels, 3 layers) at 512x512, b2, bf16 and fp32: each level's
+       shape, finite, the forward's median of 20 CUDA-graph replays, peak
+       memory, the fp32 forward twice equal in bits; 17b: the FCOS (256, 4
+       convs), RetinaNet (256, 4 convs, 9 anchors) and ATSS (128, 2 convs)
+       heads over P3-P7 of 800x1216, b2, 20 GT slots an image: forward,
+       losses, a backward into the head, finite, the fp32 forward twice
+       equal in bits, the eager step's median; 17c: `multilevel_roi_align`
+       of 512 ROIs an image over P2-P5 into `BoxHead` and `roi_box_loss`,
+       `MaskHead` on 128 ROIs (14 -> 28), `KeypointHead` (17 keypoints,
+       56 px) on 64 ROIs, `deform_psroi_pool` of 300 ROIs with offsets on
+       the stride-16 map (group 7, out 7, 8 x 49 channels): forward, loss,
+       backward, finite, bits, median; 17d: every module of 17a-17c card vs
+       CPU at full channel widths on small images (backbone outputs and the
+       steps' losses in fp32, TF32 off; the steps' losses and gradients
+       also in fp64, where cuDNN's fp32 backward algorithms cannot blur
+       them), the repo's bar, the largest error printed; 17e: the native
+       library built here with g++, `nms_cpu`, `ml_nms_cpu` and
+       `soft_nms_cpu` on 2,000 boxes against `ops/nms.py` on the card and
+       `roi_align_cpu` against `ops/roi_align.py` on the card. Any
+       comparison over its bar fails the phase at its end.
 
 Each phase drops its learners and predictors, and with them their graphs'
 memory pools, before the next.
@@ -267,7 +298,7 @@ PREDICT_BATCH, TRAIN_BATCH = 1, 4
 TRAIN_TASK = 1
 REL_TOL = 1e-5  # kernel vs plain: both sum in fp32, in different orders
 # the plain versions take 5-700 ms a call: their time is the median of 3
-# replays (the kernels' of 20)
+# replays after one eager warm-up (the kernels': 20 after 3)
 PLAIN_REPS = 3
 # the gate's config at 64 px: levels 8, 4, 2, 1, 1; two towers, batch 4
 GATE_S1_SHAPES = {8: 1, 4: 2, 2: 2, 1: 4}
@@ -349,7 +380,7 @@ def check_forward_kernels(dk, gen, records):
                                              f"err {err} > {REL_TOL} x {scale}")
                     rec["max_abs_err"] = max(rec["max_abs_err"], err)
                     ms = device_time_ms(lambda: fn(*args), inner=10)
-                    plain = device_time_ms(lambda: ref_fn(*args), reps=PLAIN_REPS)
+                    plain = device_time_ms(lambda: ref_fn(*args), reps=PLAIN_REPS, warmup=1)
                     eager = eager_time_ms(lambda: fn(*args))
                     bms, kind = window_bound_ms(h, oy, 256, offsets=(ox, g, stride, M, KW))
                     log(f"kernel {name} {str(dtype)[6:]} b{batch} in {side}x{side}x{K * 256} "
@@ -404,7 +435,7 @@ def check_backward_kernels(dk, gen, records):
                     if what != "dh" or dtype == torch.float32:
                         rec["max_abs_err"] = max(rec["max_abs_err"], err)
                 ms = device_time_ms(lambda: fn(*args), inner=10)
-                plain = device_time_ms(lambda: ref_fn(*args), reps=PLAIN_REPS)
+                plain = device_time_ms(lambda: ref_fn(*args), reps=PLAIN_REPS, warmup=1)
                 bms, kind = window_bound_ms(h, oy, 256, backward=True)
                 log(f"kernel {name} {str(dtype)[6:]} b{TRAIN_BATCH} in {side}x{side}x{K * 256} "
                     f"stride {stride}: {ms:.6f} ms, plain {plain:.6f} ms, bound {bms:.6f} ms "
@@ -513,12 +544,12 @@ def check_fused_kernels(fk, gen, records):
                     bargs = (f, oy, ox, g, w, ct, M, KW, stride)
                     ms = device_time_ms(lambda: fk.fused_deform(*args))
                     plain = device_time_ms(lambda: fk.fused_deform_reference(*args),
-                                           reps=PLAIN_REPS)
+                                           reps=PLAIN_REPS, warmup=1)
                     bms = device_time_ms(lambda: fk.fused_deform_backward(*bargs, need_dw=False))
                     bdw = device_time_ms(lambda: fk.fused_deform_backward(*bargs))
                     bplain = device_time_ms(
                         lambda: fk.fused_deform_backward_reference(*bargs, need_dw=False),
-                        reps=PLAIN_REPS)
+                        reps=PLAIN_REPS, warmup=1)
                     fb, fkind = fused_bound_ms(f, oy, C, C)
                     bb, bkind = fused_bound_ms(f, oy, C, C, backward=True)
                     bbdw, _ = fused_bound_ms(f, oy, C, C, backward=True, dw=True)
@@ -660,14 +691,14 @@ def fused_kernel_times(kernels):
     return out
 
 
-def assert_close(ours, theirs, what, rel=1e-4, atol=3e-3, where="card vs cpu"):
+def assert_close(ours, theirs, what, rel=1e-4, atol=3e-3, where="card vs cpu", dtype="fp32"):
     """The repo's composed-output bar: relative Frobenius error <= rel plus
     an absolute per-element cap."""
     ours = np.asarray(ours, np.float64)
     theirs = np.asarray(theirs, np.float64)
     frob = np.linalg.norm(ours - theirs) / max(np.linalg.norm(theirs), 1e-6)
     worst = np.abs(ours - theirs).max()
-    log(f"fp32 {where} {what}: rel frobenius {frob:.3e} (bar {rel}), max abs "
+    log(f"{dtype} {where} {what}: rel frobenius {frob:.3e} (bar {rel}), max abs "
         f"{worst:.3e} (cap {atol})")
     if not (frob <= rel and worst <= atol):
         raise AssertionError(f"{what}: card and cpu disagree")
@@ -707,7 +738,7 @@ def expected_counts(dk, fk, cfg, n: int, train: bool) -> dict:
     return want
 
 
-def train_phase(dk, fk, cfg, tok, records, what=None, keep_model=False, n_steps=10,
+def train_phase(dk, fk, cfg, tok, records, what=None, keep_model=False, n_steps=5,
                 batch=None):
     """Phases 5 and 5b: the full-width train step, batch 4, 448 px, bf16,
     task 1, on the route `cfg.dyhead.deform_impl` names, with the offset
@@ -978,7 +1009,7 @@ def detection_rows(result):
                   for e, s, b in zip(result["entities"], result["scores"], result["boxes"]))
 
 
-def predict_phase(dk, fk, model, keys, tok, cfg, image, caption, n_req=11, profile=True,
+def predict_phase(dk, fk, model, keys, tok, cfg, image, caption, n_req=5, profile=True,
                   classes=None):
     """Phases 3, 3b, 14a and 14c: 1 + `n_req` requests to a bf16 predictor
     of `model` on the card, eager and captured (the first captured request
@@ -1287,7 +1318,7 @@ def padded_records(dk, results, records):
                lambda: dk.window_accumulate_backward_reference(hp1, o1, o1, ct, M))]
     for name, ms, (bms, kind), plain in cases:
         rec = records[name]
-        rec.update(ms=ms, plain_ms=device_time_ms(plain, reps=PLAIN_REPS), bound_ms=bms)
+        rec.update(ms=ms, plain_ms=device_time_ms(plain, reps=PLAIN_REPS, warmup=1), bound_ms=bms)
         rec["bound_kinds"].add(kind)
 
     inp, grid = grid_sample_inputs(hp1, o1, o1, M)
@@ -1355,7 +1386,7 @@ def microbenchmark_phase(dk, fk, gen, records):
 RETRIEVAL_GATE_TPU = {"txt_r1": 75.0, "img_r1": 95.8, "i2t_p1_average": 75.0,
                       "task_id_acc_visual": 0.875, "task_id_acc_textual": 1.0,
                       "i2t_forgetting": 6.2}
-RETRIEVAL_STEPS = 20
+RETRIEVAL_STEPS = 10
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak of an H100 SXM (NVIDIA's data sheet)
 # device kernels by kind, first match wins: products, then casts and copies,
 # then reductions, then other elementwise ops
@@ -2004,13 +2035,14 @@ def cli_phase(dk, fk, gen, records):
 
 
 # ---- phase 13: the baseline prompt types --------------------------------------
-BASELINE_STEPS = 5
+BASELINE_STEPS = 3
 
 
 def cpu_depth_cut(cfg):
-    """`cfg` with the head cut from 6 towers to 2, for the card-vs-CPU
-    gradient comparisons of phases 13d and 14b: the CPU's plain deformable
-    convs take most of their time, and every width stays."""
+    """`cfg` with the head cut from 6 towers to 2, for every card-vs-CPU
+    comparison of the grounding model (phases 4, 6 and 5b's, 13d, 14a, 14b,
+    14d and 16c): the CPU's plain deformable convs take most of their time,
+    and every width stays."""
     return with_head(cfg, num_convs=2)
 
 
@@ -2100,7 +2132,7 @@ def cli_baseline_phase(dk, fk, work):
 def baseline_phase(dk, fk, tok):
     """Phase 13: the baseline prompt types at full width, seeded weights,
     under deterministic algorithms. 13a: the retrieval step with S-Prompts,
-    L2P and zero-shot CLIP (`retrieval_train_phase`, 1 + 5 steps a mode);
+    L2P and zero-shot CLIP (`retrieval_train_phase`, 1 + 3 steps a mode);
     13b: their fp32 loss and pool gradient, card vs CPU, S-Prompts and L2P;
     13c: the grounding step ("pallas", batch 4, `honest_offsets`) with
     S-Prompts and with MaPLe (`train_phase`), then one request each,
@@ -2197,7 +2229,7 @@ def no_kernel_request(dk, fk, model, cfg, keys, tok, image, caption, what):
         f"launched, {len(result['boxes'])} boxes, task_id {result['task_id']}")
     canvas, _ = predictor._prepare_image(image)
     ids, mask, _ = tok([caption])
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cfg32 = dataclasses.replace(cpu_depth_cut(cfg), dtype="float32")
     compare_heads(fp32_heads(model, cfg32, keys, canvas, ids, mask, "cuda"),
                   fp32_heads(model, cfg32, keys, canvas, ids, mask, "cpu"), f"{what}, card vs cpu")
 
@@ -2322,7 +2354,7 @@ def variants_phase(dk, fk, tok, records):
 
 
 # ---- phase 15: the distributed steps (a process group, a mesh) --------------
-MESH_RETRIEVAL_STEPS, MESH_GROUNDING_STEPS = 5, 3
+MESH_RETRIEVAL_STEPS, MESH_GROUNDING_STEPS = 3, 2
 
 
 def mesh_steps(dk, fk, learner, make_step, batch, steps, mode, before, what):
@@ -2516,7 +2548,7 @@ def mesh_phase():
 # ---- phase 16: the dataset catalog, multi-scale training and TTA, the evaluators
 # GLIP's AUGMENT.MULT_MIN_SIZE_TRAIN, the range `lpi_tpu/data/samplers.py` names
 MULTI_SCALE = (480, 560, 640, 720, 800)
-MULTI_SCALE_STEPS = 5
+MULTI_SCALE_STEPS = 3
 GROUPED_SIDES = (560, 800)
 TTA_SCALES = (448, 560, 800)
 TTA_CPU_SCALE = 560  # the scale whose fp32 head outputs are held card vs CPU
@@ -2686,7 +2718,7 @@ def multiscale_train_phase(dk, fk, gen, tok, records, ann, images):
     """16b: multi-scale training at full width (b4, bf16, task 1,
     `honest_offsets`) on the fabricated RefExp set loaded with
     `AugmentConfig(multi_scale=MULTI_SCALE)`: a pad-to-max batch (800 px)
-    through `train_phase` (1 + 5 steps a mode, 54 / 24 / 54 / 24, captured
+    through `train_phase` (1 + 3 steps a mode, 54 / 24 / 54 / 24, captured
     equal to eager in bits, median, samples/s, busy share, peak memory),
     the scale-grouped batches at 560 and 800 (`grouped_steps`), then the
     window kernels at the level shapes of 800 and 560 px
@@ -2792,7 +2824,7 @@ def tta_phase(dk, fk, tok, work):
     log(f"16c TTA: captured and eager give the same {len(merged['eager']['boxes'])} merged "
         f"detections")
     ids, mask, _ = tok([CLI_CAPTION])
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cfg32 = dataclasses.replace(cpu_depth_cut(cfg), dtype="float32")
     compare_heads(fp32_heads(model, cfg32, keys[TTA_CPU_SCALE], canvas, ids, mask, "cuda"),
                   fp32_heads(model, cfg32, keys[TTA_CPU_SCALE], canvas, ids, mask, "cpu"),
                   f"{TTA_CPU_SCALE} px, card vs cpu")
@@ -2913,6 +2945,593 @@ def multiscale_phase(dk, fk, gen=None, tok=None, records=None):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---- phase 17: the detector zoo ---------------------------------------------
+ZOO_CLASSES = 80
+ZOO_IMAGE = (800, 1216)
+ZOO_STRIDES = (8, 16, 32, 64, 128)
+ZOO_GT = 20  # GT slots an image, some padded
+ZOO_REPS = 5  # eager steps timed a head (after one warm-up)
+SWIN_LEVELS = [(200, 304, 96), (100, 152, 192), (50, 76, 384), (25, 38, 768)]
+
+
+def level_shapes(h: int, w: int, strides) -> list:
+    """Sides of the maps at `strides` of an h x w image, as the zoo's
+    stride-2 'SAME' convs give them (each level the ceiling of half the
+    last)."""
+    out, (H, W), s = [], (h, w), 1
+    for stride in strides:
+        while s < stride:
+            H, W, s = -(-H // 2), -(-W // 2), s * 2
+        out.append((H, W))
+    return out
+
+
+def zoo_backbones():
+    """17a's backbones: (name, constructor taking a dtype, image side, whether it
+    takes text, [(H, W, C)] of its levels at that side)."""
+    from lpi_tpu_torch.models.glip.efficientnet import EfficientNetBiFPN
+    from lpi_tpu_torch.models.glip.fbnet import FBNet
+    from lpi_tpu_torch.models.glip.resnet import ResNet
+    from lpi_tpu_torch.models.glip.swin import SwinTransformer
+    from lpi_tpu_torch.models.glip.swin_variants import SwinTransformerV2, SwinTransformerVL
+
+    swin = dict(out_stages=(2, 3, 4, 5))  # Swin-T: 96, (2, 2, 6, 2), (3, 6, 12, 24), window 7
+    return (
+        ("ResNet-50", lambda dt: ResNet((3, 4, 6, 3), 64, dt), ZOO_IMAGE, False,
+         [(100, 152, 512), (50, 76, 1024), (25, 38, 2048)]),
+        ("Swin-T", lambda dt: SwinTransformer(**swin, dtype=dt), ZOO_IMAGE, False, SWIN_LEVELS),
+        ("Swin-T v2", lambda dt: SwinTransformerV2(**swin, dtype=dt), ZOO_IMAGE, False,
+         SWIN_LEVELS),
+        ("Swin-T VL", lambda dt: SwinTransformerVL(**swin, dtype=dt), ZOO_IMAGE, True,
+         SWIN_LEVELS),
+        ("EfficientNet-B0 + BiFPN", lambda dt: EfficientNetBiFPN(64, 3, dtype=dt), (512, 512),
+         False, [(64, 64, 64), (32, 32, 64), (16, 16, 64), (8, 8, 64), (4, 4, 64)]),
+        ("FBNet-C", lambda dt: FBNet(dtype=dt), ZOO_IMAGE, False,
+         [(100, 152, 32), (50, 76, 112), (25, 38, 352)]),
+    )
+
+
+def zoo_inputs(side, batch: int, text: bool, tokens: int, device):
+    """Seeded images [B, H, W, 3] and, for the VL tower, a 768-wide text
+    hidden of `tokens` with the last tokens of each row padded."""
+    g = torch.Generator().manual_seed(side[0] * 7 + side[1] + tokens)
+    out = [torch.randn(batch, *side, 3, generator=g)]
+    if text:
+        mask = torch.ones(batch, tokens)
+        for b in range(batch):
+            mask[b, tokens - 5 * (b + 1):] = 0
+        out += [torch.randn(batch, tokens, 768, generator=g), mask]
+    return [x.to(device) for x in out]
+
+
+def zoo_levels(out) -> list:
+    """A backbone's output as a flat list of tensors (the VL tower's text
+    hidden last)."""
+    if isinstance(out, tuple):
+        return list(out[0]) + [out[1]]
+    return list(out)
+
+
+def finite(tensors, what) -> None:
+    for i, x in enumerate(tensors):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{what}: output {i} not finite")
+
+
+def equal_bits_all(a, b, what) -> None:
+    for i, (x, y) in enumerate(zip(a, b)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: two fp32 calls differ in bits at output {i}")
+
+
+def median_eager_ms(fn, reps: int = ZOO_REPS) -> float:
+    """Host clock around `reps` eager calls (each synchronized), after one
+    warm-up; the median, ms."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    return statistics.median(times)
+
+
+def held_card_cpu(card_outs, cpu_outs, what, worst, slot=0) -> None:
+    """Card against the CPU at the repo's bar, the largest relative error
+    kept in `worst[slot]` (0 fp32, 2 fp64); a disagreement is logged and
+    kept in `worst[1]`, which the phase raises on at its end."""
+    for i, (a, b) in enumerate(zip(card_outs, cpu_outs)):
+        a, b = a.detach().double().cpu().numpy(), b.detach().double().numpy()
+        try:
+            assert_close(a, b, f"{what} [{i}] {tuple(b.shape)}", where="17d card vs cpu",
+                         dtype="fp64" if slot == 2 else "fp32")
+        except AssertionError as e:
+            worst[1].append(str(e))
+        worst[slot] = max(worst[slot], rel_frob(a, b))
+
+
+def backbone_part(name, build, side, text, want, worst) -> None:
+    """17a for one backbone (b2, bf16 and fp32 at full width: shapes,
+    finite, graph-replay median, peak memory; the fp32 call twice, equal
+    bits), then 17d (fp32 card vs CPU at a small side)."""
+    import copy
+
+    from lpi_tpu_torch.continual.keys import exact_fp32
+    from lpi_tpu_torch.models.glip.resnet import init_parameters
+
+    cpu32 = build(torch.float32).eval()
+    init_parameters(cpu32, torch.Generator().manual_seed(17))
+    n_params = sum(p.numel() for p in cpu32.parameters())
+    inputs = zoo_inputs(side, 2, text, 256, "cuda")
+    for dt in (torch.bfloat16, torch.float32):
+        m = build(dt).eval()
+        m.load_state_dict(cpu32.state_dict())
+        m = m.cuda()
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            outs = zoo_levels(m(*inputs))
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            got = [tuple(o.shape[1:]) for o in outs[:len(want)]]
+            if got != [tuple(w) for w in want] or any(o.shape[0] != 2 for o in outs):
+                raise AssertionError(f"17a {name} {dt}: levels {got}, want {want}")
+            if text and tuple(outs[-1].shape) != (2, 256, 768):
+                raise AssertionError(f"17a {name}: text hidden {tuple(outs[-1].shape)}")
+            finite(outs, f"17a {name} {dt}")
+            if dt == torch.float32:
+                equal_bits_all(outs, zoo_levels(m(*inputs)), f"17a {name}")
+            ms = device_time_ms(lambda: m(*inputs), reps=20)
+        log(f"17a {name} ({n_params:,} parameters) {str(dt)[6:]} b2 at {side[0]}x{side[1]} "
+            f"on {card_line()}: forward {ms:.3f} ms (median of 20 graph replays), peak "
+            f"{peak:.3f} GiB, levels {got}{', text (2, 256, 768)' if text else ''}, finite"
+            + (", two fp32 calls equal in bits" if dt == torch.float32 else ""))
+        del m, outs
+        torch.cuda.empty_cache()
+
+    small = (96, 96) if side == (512, 512) else (64, 96)
+    x_cpu = zoo_inputs(small, 1, text, 32, "cpu")
+    card = copy.deepcopy(cpu32).cuda()
+    t = time.perf_counter()
+    with torch.no_grad(), exact_fp32():
+        ours = zoo_levels(card(*[x.cuda() for x in x_cpu]))
+        theirs = zoo_levels(cpu32(*x_cpu))
+    held_card_cpu(ours, theirs, f"17d {name} at {small[0]}x{small[1]}", worst)
+    log(f"17d {name}: {time.perf_counter() - t:.3f} s")
+    del card
+
+
+def zoo_features(shapes, channels, batch, device, seed, grad=False):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(batch, h, w, channels, generator=g).to(device).requires_grad_(grad)
+            for h, w in shapes]
+
+
+def zoo_ground_truth(h, w, batch, device, seed, n_valid=(14, 9)):
+    """[B, ZOO_GT] padded GT boxes (sides 4-50% of the image), 1-based
+    labels of 80 classes, validity."""
+    rng = np.random.RandomState(seed)
+    boxes = np.zeros((batch, ZOO_GT, 4), np.float32)
+    labels = np.zeros((batch, ZOO_GT), np.int64)
+    valid = np.zeros((batch, ZOO_GT), bool)
+    for b in range(batch):
+        n = n_valid[b]
+        wh = rng.uniform(0.04, 0.5, (n, 2)) * (w, h)
+        xy = rng.uniform(0, 1, (n, 2)) * ((w, h) - wh)
+        boxes[b, :n] = np.concatenate([xy, xy + wh], 1)
+        labels[b, :n] = rng.randint(1, ZOO_CLASSES + 1, n)
+        valid[b, :n] = True
+    return [torch.from_numpy(a).to(device) for a in (boxes, labels, valid)]
+
+
+def retina_anchors(shapes):
+    """9 anchors a location (3 octave scales x ratios 0.5, 1, 2), sizes
+    32-512, from `anchors.grid_anchors` (concat_anchors' per-level grids),
+    location-major as the head's A x C channels are."""
+    from lpi_tpu_torch.models.glip.anchors import grid_anchors
+
+    sizes = np.array([32, 64, 128, 256, 512], np.float32)
+    per_scale = [grid_anchors(shapes, ZOO_STRIDES, sizes * 2 ** (i / 3), (0.5, 1.0, 2.0))
+                 for i in range(3)]
+    levels = [np.stack([per_scale[i][lv].reshape(-1, 3, 4) for i in range(3)], 1).reshape(-1, 4)
+              for lv in range(len(shapes))]
+    return np.concatenate(levels)
+
+
+def head_losses(shapes, device):
+    """17b's loss functions over the levels `shapes`: {name: loss(head,
+    feats, gt) -> dict}."""
+    from lpi_tpu_torch.models.glip.anchors import concat_anchors
+    from lpi_tpu_torch.models.glip.atss_head import atss_class_losses
+    from lpi_tpu_torch.models.glip.fcos import DEFAULT_RANGES, fcos_locations, fcos_losses
+    from lpi_tpu_torch.models.glip.retina import retina_losses
+
+    locs = fcos_locations(shapes, ZOO_STRIDES)
+    points = torch.from_numpy(np.concatenate(locs)).to(device)
+    ranges = torch.from_numpy(np.concatenate(
+        [np.tile(np.asarray(r, np.float32), (len(l), 1)) for l, r in zip(locs, DEFAULT_RANGES)]
+    )).to(device)
+    r_anchors = torch.from_numpy(retina_anchors(shapes)).to(device)
+    a_anchors, counts = concat_anchors(shapes, ZOO_STRIDES, [64, 128, 256, 512, 1024])
+    a_anchors = torch.from_numpy(a_anchors).to(device)
+
+    def cat(levels, last):
+        return torch.cat([x.reshape(x.shape[0], -1, last) for x in levels], 1)
+
+    def fcos(head, feats, gt):
+        out = head(feats)
+        return fcos_losses(points, ranges, cat(out["cls_logits"], ZOO_CLASSES),
+                           cat(out["ltrb"], 4), cat(out["centerness"], 1)[..., 0], *gt)
+
+    def retina(head, feats, gt):
+        out = head(feats)
+        return retina_losses(r_anchors, cat(out["cls_logits"], ZOO_CLASSES),
+                             cat(out["bbox_pred"], 4), *gt)
+
+    def atss(head, feats, gt):
+        out = head(feats)
+        return atss_class_losses(a_anchors, counts, cat(out["cls_logits"], ZOO_CLASSES),
+                                 cat(out["bbox_pred"], 4), cat(out["centerness"], 1)[..., 0],
+                                 *gt)
+
+    return dict(zip(DENSE_HEADS, (fcos, retina, atss)))
+
+
+DENSE_HEADS = ("FCOS (256, 4 convs)", "RetinaNet (256, 4 convs, 9 anchors)",
+               "ATSS (128, 2 convs)")
+
+
+def dense_heads():
+    """17b's heads at published widths, seeded on the CPU."""
+    from lpi_tpu_torch.models.glip.atss_head import ATSSDetHead
+    from lpi_tpu_torch.models.glip.fcos import FCOSHead
+    from lpi_tpu_torch.models.glip.resnet import init_parameters
+    from lpi_tpu_torch.models.glip.retina import RetinaNetHead
+
+    heads = (FCOSHead(ZOO_CLASSES), RetinaNetHead(ZOO_CLASSES), ATSSDetHead(ZOO_CLASSES))
+    for i, head in enumerate(heads):
+        init_parameters(head, torch.Generator().manual_seed(170 + i))
+    return dict(zip(DENSE_HEADS, heads))
+
+
+def loss_total(losses) -> torch.Tensor:
+    return sum(v for k, v in losses.items() if k.startswith("loss"))
+
+
+def step_grads(module, loss_fn, *args):
+    """One forward, loss and backward into the module's parameters ->
+    (losses as floats, [grads], the forward's floating outputs' losses)."""
+    module.zero_grad(set_to_none=True)
+    losses = loss_fn(module, *args)
+    loss_total(losses).backward()
+    return losses, [p.grad for p in module.parameters()]
+
+
+def in_dtype(module, dtype):
+    """`module` with its parameters and every layer's compute type (Flax's
+    `dtype=`, which a layer built with one keeps) set to `dtype`."""
+    module = module.to(dtype=dtype)
+    for m in module.modules():
+        for attr in ("compute_dtype", "dtype"):
+            if isinstance(getattr(m, attr, None), torch.dtype):
+                setattr(m, attr, dtype)
+    return module
+
+
+def card_cpu_step(what, run, worst) -> None:
+    """17d for one step. `run(device, dtype)` -> (losses, [gradients]) from
+    the same seeded weights and inputs. The losses in fp32, card (TF32 off)
+    against the CPU; the losses and the concatenated gradient in fp64, card
+    against the CPU. In fp32 the gradients of these conv stacks are not
+    fixed to 1e-4 by the code alone: cuDNN's fp32 backward algorithms (TF32
+    off) and the CPU's reductions each land up to a few 1e-3 from the fp64
+    gradient in some layers, so fp32's gradient error against the CPU's
+    fp64 is printed for both and held to nothing."""
+    from lpi_tpu_torch.continual.keys import exact_fp32
+
+    def flat(grads):
+        return torch.cat([g.detach().double().cpu().reshape(-1) for g in grads])
+
+    def loss_list(losses):
+        return [v.detach().reshape(1) for k, v in losses.items() if k.startswith("loss")]
+
+    with exact_fp32():
+        k32 = run("cuda", torch.float32)
+        k64 = run("cuda", torch.float64)
+    c32, c64 = run("cpu", torch.float32), run("cpu", torch.float64)
+    held_card_cpu(loss_list(k32[0]), loss_list(c32[0]), f"{what} losses", worst)
+    held_card_cpu(loss_list(k64[0]) + [flat(k64[1])], loss_list(c64[0]) + [flat(c64[1])],
+                  f"{what} losses and parameter gradient", worst, slot=2)
+    ref = flat(c64[1]).numpy()
+    log(f"{what}: fp32 gradient against the CPU's fp64, card (TF32 off) "
+        f"{rel_frob(flat(k32[1]).numpy(), ref):.3e}, "
+        f"CPU {rel_frob(flat(c32[1]).numpy(), ref):.3e}")
+
+
+def dense_head_part(worst) -> None:
+    """17b: FCOS, RetinaNet and ATSS over P3-P7 of an 800 x 1216 image, b2,
+    20 GT slots an image: forward, losses, backward into the head; finite;
+    the fp32 forward twice, equal bits; median step. 17d: the same heads
+    card vs CPU on the levels of a 128 x 192 image (`card_cpu_step`)."""
+    import copy
+
+    shapes = level_shapes(*ZOO_IMAGE, ZOO_STRIDES)
+    feats = zoo_features(shapes, 256, 2, "cuda", 171)
+    gt = zoo_ground_truth(*ZOO_IMAGE, 2, "cuda", 172)
+    small = level_shapes(128, 192, ZOO_STRIDES)
+    feats_cpu = zoo_features(small, 256, 2, "cpu", 173)
+    gt_cpu = zoo_ground_truth(128, 192, 2, "cpu", 174, (5, 3))
+    losses_full = head_losses(shapes, "cuda")
+    losses_cpu, losses_card = head_losses(small, "cpu"), head_losses(small, "cuda")
+    for name, cpu_head in dense_heads().items():
+        loss_fn = losses_full[name]
+        head = copy.deepcopy(cpu_head).cuda()
+        torch.cuda.reset_peak_memory_stats()
+        losses, grads = step_grads(head, loss_fn, feats, gt)
+        finite([v.reshape(1) for k, v in losses.items() if k.startswith("loss")] + grads,
+               f"17b {name}")
+        with torch.no_grad():
+            a, b = head(feats), head(feats)
+            equal_bits_all([x for k in a for x in a[k]], [x for k in b for x in b[k]],
+                           f"17b {name}")
+        ms = median_eager_ms(lambda: step_grads(head, loss_fn, feats, gt))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"17b {name} b2 at P3-P7 of {ZOO_IMAGE[0]}x{ZOO_IMAGE[1]} on {card_line()}: "
+            f"step (forward, losses, backward) {ms:.3f} ms eager (median of {ZOO_REPS}), peak "
+            f"{peak:.3f} GiB; losses {', '.join(f'{k} {v.item():.4f}' for k, v in losses.items())}"
+            f"; finite; two fp32 forwards equal in bits")
+        t = time.perf_counter()
+
+        def run(dev, dtype, cpu_head=cpu_head, name=name):
+            h = in_dtype(copy.deepcopy(cpu_head), dtype).to(dev)
+            boxes, labels, valid = (g.to(dev) for g in gt_cpu)
+            return step_grads(h, (losses_card if dev == "cuda" else losses_cpu)[name],
+                              [f.to(device=dev, dtype=dtype) for f in feats_cpu],
+                              [boxes.to(dtype), labels, valid])
+
+        card_cpu_step(f"17d {name}", run, worst)
+        log(f"17d {name}: {time.perf_counter() - t:.3f} s")
+        del head
+        torch.cuda.empty_cache()
+
+
+def zoo_rois(n_per_image, h, w, batch, device, seed, lo=16.0, hi=0.6):
+    """[batch * n, 5] ROIs (batch index, x1, y1, x2, y2), sides from `lo` px
+    to `hi` of the image, some across the border."""
+    rng = np.random.RandomState(seed)
+    n = n_per_image * batch
+    wh = np.exp(rng.uniform(np.log(lo), np.log(hi * min(h, w)), (n, 2)))
+    xy = rng.uniform(-0.05, 1.0, (n, 2)) * (w, h) - wh / 2
+    b = np.repeat(np.arange(batch), n_per_image)[:, None]
+    return torch.from_numpy(np.concatenate([b, xy, xy + wh], 1).astype(np.float32)).to(device)
+
+
+def roi_modules():
+    """17c's heads, seeded on the CPU."""
+    from lpi_tpu_torch.models.glip.resnet import init_parameters
+    from lpi_tpu_torch.models.glip.roi_heads import BoxHead
+    from lpi_tpu_torch.models.glip.roi_mask_keypoint import KeypointHead, MaskHead
+
+    mods = {"box": BoxHead(ZOO_CLASSES, in_features=7 * 7 * 256),
+            "mask": MaskHead(ZOO_CLASSES), "keypoint": KeypointHead(17, in_channels=256)}
+    for i, m in enumerate(mods.values()):
+        init_parameters(m, torch.Generator().manual_seed(180 + i))
+    return mods
+
+
+def roi_steps(mods, feats, rois, psmap, ps_rois, trans, seed):
+    """The ROI path's four steps as closures on the given inputs ->
+    {name: (module or None, step() -> (losses, forward outputs))}."""
+    from lpi_tpu_torch.models.glip.roi_heads import multilevel_roi_align, roi_box_loss
+    from lpi_tpu_torch.models.glip.roi_mask_keypoint import keypoint_loss, mask_loss
+    from lpi_tpu_torch.ops.deform_pool import deform_psroi_pool
+
+    dev = rois.device
+    g = torch.Generator().manual_seed(seed)
+    R = rois.shape[0]
+    labels = torch.randint(0, ZOO_CLASSES + 1, (R,), generator=g).to(dev)
+    valid = (torch.rand(R, generator=g) > 0.1).to(dev)
+    matched = rois[:, 1:] + (torch.randn(R, 4, generator=g) * 4).to(dev)
+    n_mask, n_kp = max(R // 8, 1), max(R // 16, 1)
+    masks = (torch.rand(n_mask, 28, 28, generator=g) > 0.5).float().to(dev)
+    mask_labels = torch.randint(0, ZOO_CLASSES, (n_mask,), generator=g).to(dev)
+    kp_boxes = rois[:n_kp, 1:]
+    kps = torch.cat([kp_boxes[:, None, :2] + torch.rand(n_kp, 17, 2, generator=g).to(dev)
+                     * (kp_boxes[:, None, 2:] - kp_boxes[:, None, :2]),
+                     torch.randint(0, 3, (n_kp, 17, 1), generator=g).float().to(dev)], -1)
+    ct = torch.randn(ps_rois.shape[0], 7, 7, 8, generator=g).to(dev)
+    strides = (4, 8, 16, 32)
+
+    def box():
+        cls, deltas = mods["box"](multilevel_roi_align(feats, rois, strides, 7))
+        return roi_box_loss(cls, deltas, rois[:, 1:], labels, matched, valid), [cls, deltas]
+
+    def mask():
+        logits = mods["mask"](multilevel_roi_align(feats, rois[:n_mask], strides, 14))
+        return {"loss_mask": mask_loss(logits, masks, mask_labels, torch.ones_like(
+            mask_labels, dtype=torch.bool))}, [logits]
+
+    def keypoint():
+        maps = mods["keypoint"](multilevel_roi_align(feats, rois[:n_kp], strides, 14))
+        return {"loss_keypoint": keypoint_loss(maps, kps, kp_boxes, torch.ones(
+            n_kp, dtype=torch.bool, device=dev))}, [maps]
+
+    def psroi():
+        out = deform_psroi_pool(psmap, ps_rois, trans, out_size=7, out_dim=8,
+                                spatial_scale=1 / 16, group_size=7)
+        return {"loss_psroi": (out * ct).sum()}, [out]
+
+    return {"BoxHead + multilevel_roi_align + roi_box_loss": ("box", box),
+            "MaskHead (14 -> 28) + mask_loss": ("mask", mask),
+            "KeypointHead (17 keypoints, 56 px) + keypoint_loss": ("keypoint", keypoint),
+            "deform_psroi_pool (group 7, out 7, out_dim 8, offsets)": (None, psroi)}
+
+
+def roi_inputs(h, w, n_per_image, n_ps, device, seed):
+    """P2-P5 at 256 channels and ROIs, a stride-16 map of 392 channels and
+    its ROIs and offsets; every leaf takes a gradient."""
+    feats = zoo_features(level_shapes(h, w, (4, 8, 16, 32)), 256, 2, device, seed, grad=True)
+    rois = zoo_rois(n_per_image, h, w, 2, device, seed + 1)
+    psmap = zoo_features([level_shapes(h, w, (16,))[0]], 392, 2, device, seed + 2, True)[0]
+    ps_rois = zoo_rois(n_ps // 2, h, w, 2, device, seed + 3)
+    g = torch.Generator().manual_seed(seed + 4)
+    trans = (torch.randn(n_ps, 2, 7, 7, generator=g) * 0.3).to(device).requires_grad_()
+    return feats, rois, psmap, ps_rois, trans
+
+
+def roi_leaves(mods, key, inputs):
+    """The leaves a ROI step's gradient is taken for: its head's parameters
+    and the P2-P5 maps, or the PS-ROI map and its offsets."""
+    feats, _, psmap, _, trans = inputs
+    if key is None:
+        return [psmap, trans]
+    return [*mods[key].parameters(), *feats]
+
+
+def roi_run(step, leaves):
+    for p in leaves:
+        p.grad = None
+    losses, outs = step()
+    loss_total(losses).backward()
+    return losses, outs, [p.grad for p in leaves]
+
+
+def roi_part(worst) -> None:
+    """17c: the ROI path at full width (P2-P5 of an 800 x 1216 image, b2,
+    512 ROIs an image; 128 mask ROIs; 64 keypoint ROIs; 300 PS-ROIs with
+    offsets on the stride-16 map): forward, losses, backward into the
+    heads, the features and the offsets; finite; the fp32 forward twice,
+    equal bits; median steps. 17d: the same on a 128 x 192 image, card vs
+    CPU (`card_cpu_step`)."""
+    import copy
+
+    mods = roi_modules()
+    card_mods = {k: copy.deepcopy(m).cuda() for k, m in mods.items()}
+    inputs = roi_inputs(*ZOO_IMAGE, 512, 300, "cuda", 190)
+    small = roi_inputs(128, 192, 16, 20, "cpu", 195)
+    for name, (key, step) in roi_steps(card_mods, *inputs, seed=199).items():
+        leaves = roi_leaves(card_mods, key, inputs)
+        torch.cuda.reset_peak_memory_stats()
+        losses, outs, grads = roi_run(step, leaves)
+        finite([v.detach().reshape(1) for v in losses.values()] + outs + grads, f"17c {name}")
+        with torch.no_grad():
+            equal_bits_all(step()[1], step()[1], f"17c {name}")
+        ms = median_eager_ms(lambda: roi_run(step, leaves))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"17c {name} on {card_line()}: step (forward, loss, backward) {ms:.3f} ms eager "
+            f"(median of {ZOO_REPS}), peak {peak:.3f} GiB; "
+            f"{', '.join(f'{k} {v.item():.4f}' for k, v in losses.items())}; output shapes "
+            f"{[tuple(o.shape) for o in outs]}; finite; two fp32 forwards equal in bits")
+        t = time.perf_counter()
+
+        def run(dev, dtype, name=name, key=key):
+            ms = {k: in_dtype(copy.deepcopy(m), dtype).to(dev) for k, m in mods.items()}
+            feats, rois, psmap, ps_rois, trans = small
+            ins = ([f.detach().to(device=dev, dtype=dtype).requires_grad_() for f in feats],
+                   rois.to(device=dev, dtype=dtype),
+                   psmap.detach().to(device=dev, dtype=dtype).requires_grad_(),
+                   ps_rois.to(device=dev, dtype=dtype),
+                   trans.detach().to(device=dev, dtype=dtype).requires_grad_())
+            losses, _, grads = roi_run(roi_steps(ms, *ins, seed=198)[name][1],
+                                       roi_leaves(ms, key, ins))
+            return losses, grads
+
+        card_cpu_step(f"17d {name}", run, worst)
+        log(f"17d {name}: {time.perf_counter() - t:.3f} s")
+
+
+def native_part() -> None:
+    """17e: the port's native library built here with g++, against
+    `ops/nms.py` and `ops/roi_align.py` on the card."""
+    from lpi_tpu_torch import native
+    from lpi_tpu_torch.ops.nms import ml_nms_mask, nms_mask, soft_nms
+    from lpi_tpu_torch.ops.roi_align import roi_align
+
+    if native.compiler() is None:
+        raise AssertionError("17e: no C++ compiler (g++) on this host for the native library")
+    t = time.perf_counter()
+    path = native.build()
+    log(f"17e: native library {path.name} built or found in {time.perf_counter() - t:.3f} s")
+    rng = np.random.RandomState(200)
+    # 200 objects x 10 jittered detections each, in an 800 x 1216 image
+    centres = rng.uniform(0, 1, (200, 2)) * (1216, 800)
+    sides = np.exp(rng.uniform(np.log(16), np.log(400), (200, 2)))
+    c = np.repeat(centres, 10, 0) + rng.randn(2000, 2) * np.repeat(sides, 10, 0) * 0.1
+    s = np.repeat(sides, 10, 0) * rng.uniform(0.8, 1.2, (2000, 2))
+    boxes = np.concatenate([c - s / 2, c + s / 2], 1).astype(np.float32)
+    scores = (rng.permutation(2000) / 2000 * 0.95 + 0.05).astype(np.float32)
+    labels = rng.randint(0, ZOO_CLASSES, 2000).astype(np.int32)
+    b, sc, lb = (torch.from_numpy(a).cuda() for a in (boxes, scores, labels))
+
+    def kept_in_order(mask):
+        idx = np.nonzero(mask.cpu().numpy())[0]
+        return idx[np.argsort(-scores[idx], kind="stable")]
+
+    for what, host, card in (
+            ("nms_cpu", lambda: native.nms_cpu(boxes, scores, 0.5),
+             lambda: kept_in_order(nms_mask(b, sc, 0.5))),
+            ("ml_nms_cpu", lambda: native.ml_nms_cpu(boxes, scores, labels, 0.5),
+             lambda: kept_in_order(ml_nms_mask(b, sc, lb, 0.5)))):
+        t = time.perf_counter()
+        want = host()
+        t_host = time.perf_counter() - t
+        t = time.perf_counter()
+        got = card()
+        t_card = time.perf_counter() - t
+        if not np.array_equal(want, got):
+            raise AssertionError(f"17e {what}: {len(want)} kept against {len(got)} on the card")
+        log(f"17e {what} on 2,000 boxes: {len(want)} kept, equal to ops/nms.py on the card "
+            f"(host {1e3 * t_host:.3f} ms, card {1e3 * t_card:.3f} ms)")
+    t = time.perf_counter()
+    decayed, kept = native.soft_nms_cpu(boxes, scores, 0.5, 0.001)
+    t_host = time.perf_counter() - t
+    t = time.perf_counter()
+    out, picked = soft_nms(b, sc, sigma=0.5, score_threshold=0.001)
+    out, picked = out.cpu().numpy(), picked.cpu().numpy()
+    t_card = time.perf_counter() - t
+    rel = np.abs(out[picked] - decayed[picked]) / decayed[picked]
+    if int(picked.sum()) != kept or not rel.max() <= 1e-4:
+        raise AssertionError(f"17e soft_nms_cpu: {kept} kept on the host, {int(picked.sum())} "
+                             f"on the card, largest relative difference {rel.max():.3e}")
+    log(f"17e soft_nms_cpu on 2,000 boxes: {kept} kept on both, decayed scores within "
+        f"relative {rel.max():.3e} (bar 1e-4) of ops/nms.py:soft_nms on the card (host "
+        f"{1e3 * t_host:.3f} ms, card {1e3 * t_card:.3f} ms)")
+    fmap = torch.from_numpy(rng.randn(1, 50, 76, 256).astype(np.float32))
+    rois = zoo_rois(64, 800, 1216, 1, "cpu", 201)
+    rois[:, 0] = 0
+    want = torch.from_numpy(np.stack([native.roi_align_cpu(fmap[0].numpy(), r[1:].numpy(),
+                                                           1 / 16, 7, 2) for r in rois]))
+    got = roi_align(fmap.cuda(), rois.cuda(), 7, 1 / 16).cpu()
+    assert_close(got.numpy(), want.numpy(), "17e roi_align_cpu (64 ROIs, 50x76x256, 1/16)",
+                 where="card (ops/roi_align.py) vs the native library")
+
+
+def zoo_phase() -> None:
+    """Phase 17, the detector zoo at published widths (80 classes, seeded
+    weights): 17a backbones, 17b dense heads, 17c the ROI path, 17d every
+    module fp32 card vs CPU at a small size, 17e the native library."""
+    worst = [0.0, [], 0.0]
+    t0 = time.perf_counter()
+    for name, build, side, text, want in zoo_backbones():
+        backbone_part(name, build, side, text, want, worst)
+    log(f"phase 17a (+ its 17d): {time.perf_counter() - t0:.3f} s")
+    t = time.perf_counter()
+    dense_head_part(worst)
+    log(f"phase 17b (+ its 17d): {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    roi_part(worst)
+    log(f"phase 17c (+ its 17d): {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    native_part()
+    log(f"phase 17e: {time.perf_counter() - t:.3f} s")
+    log(f"phase 17d: largest fp32 card-vs-CPU relative Frobenius error {worst[0]:.3e}, "
+        f"fp64 (the steps' losses and gradients) {worst[2]:.3e} (bar 1e-4)")
+    if worst[1]:
+        raise AssertionError(f"phase 17d: {len(worst[1])} comparisons over the bar: {worst[1]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2991,11 +3610,12 @@ def main() -> int:
     ids, mask, _ = tok([caption])
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     cfg32_fused = dataclasses.replace(cfg_fused, dtype="float32")
-    card_pallas = fp32_heads(model, cfg32, keys, canvas, ids, mask, "cuda")
-    compare_heads(card_pallas, fp32_heads(model, cfg32, keys, canvas, ids, mask, "cpu"),
-                  "card vs cpu")
+    cut32 = dataclasses.replace(cpu_depth_cut(cfg), dtype="float32")
+    compare_heads(fp32_heads(model, cut32, keys, canvas, ids, mask, "cuda"),
+                  fp32_heads(model, cut32, keys, canvas, ids, mask, "cpu"), "card vs cpu")
     compare_heads(fp32_heads(model, cfg32_fused, keys, canvas, ids, mask, "cuda"),
-                  card_pallas, "fused vs pallas, card")
+                  fp32_heads(model, cfg32, keys, canvas, ids, mask, "cuda"),
+                  "fused vs pallas, card")
     del predictor, predictor_fused, model, model_fused
     torch.cuda.empty_cache()
     log(f"phases 4, 3b fp32: {time.perf_counter() - t:.3f} s")
@@ -3004,7 +3624,7 @@ def main() -> int:
     for c in (cfg, cfg_fused):
         t = time.perf_counter()
         batch = train_phase(dk, fk, c, tok, records)
-        gradient_phase(c, batch)
+        gradient_phase(cpu_depth_cut(c), batch)
         log(f"phases 5-6 ({c.dyhead.deform_impl}): {time.perf_counter() - t:.3f} s")
 
     # ---- the quality gates, phases 7 and 10 at once -----------------------
@@ -3054,6 +3674,12 @@ def main() -> int:
     t = time.perf_counter()
     multiscale_phase(dk, fk, gen, tok, records)
     log(f"phase 16: {time.perf_counter() - t:.3f} s")
+    log(f"phases 1-16: {time.perf_counter() - t0:.3f} s after the start of the build")
+
+    # ---- the detector zoo: backbones, heads, ROI ops, the native library -
+    t = time.perf_counter()
+    zoo_phase()
+    log(f"phase 17: {time.perf_counter() - t:.3f} s")
 
     for rec in records.values():
         kinds = rec.pop("bound_kinds")

@@ -27,6 +27,27 @@ patch stem `conv1` goes from HWIO to OIHW, LayerNorm `scale` becomes
 `x @ proj`); the embeddings, `logit_scale`, the CP factors and `ctx_pool`
 are copied.
 
+`zoo_params_from_jax(params)` maps the Flax params tree of any module of
+the detector zoo (`lpi_tpu.models.glip.{resnet,swin,swin_variants,
+efficientnet,fbnet,fcos,retina,atss_head,roi_heads,roi_mask_keypoint}`) to
+a `state_dict` of its port:
+
+* `stage{s}_block{b}` become `blocks.{s}.{b}`; `downsample{s}`,
+  `out_norm{s}`, `lateral{i}`, `bifpn{i}` and the heads' numbered convs
+  (`cls_tower{i}`, `box_tower{i}`, `bbox_tower{i}`, `fcn{i}`,
+  `conv_fcn{i}`) become list entries; BiFPN's `td{i}_dw` / `_pw` / `_bn`
+  (and `bu{i}_...`) become `convs.td{i}.dw` ...;
+* conv kernels HWIO -> OIHW (a depthwise kernel's I is 1, which is torch's
+  [C, 1, kh, kw] for `groups=C`), Dense kernels transposed, frozen-BN and
+  LayerNorm `scale` -> `weight`;
+* the transposed convs (`deconv`, `kps_score_lowres`, Flax's
+  `ConvTranspose`, which does not flip its kernel) are flipped in H and W
+  and laid out [in, out, kh, kw] (`models/layers.py:ConvTranspose`);
+* the Swin bias tables (`relative_position_bias_table`,
+  `i2t_relative_position_bias`, `t2t_relative_position_bias`), BiFPN's
+  fusion weights `w_td` / `w_bu` and the per-level `scales` are copied as
+  they are.
+
 `keys_from_jax(centers, valid)` builds the port's `TaskKeys`. Nothing here
 imports JAX: the caller hands over numpy arrays.
 """
@@ -50,6 +71,14 @@ _RENAMES = (
     (re.compile(r"^head/fuse(\d+)/"), r"head/fuses/\1/"),
     (re.compile(r"^head/lang(\d+)/"), r"head/langs/\1/"),
 )
+_ZOO_RENAMES = (
+    (re.compile(r"(^|/)stage(\d+)_block(\d+)/"), r"\1blocks/\2/\3/"),
+    (re.compile(r"(^|/)(downsample|out_norm)(\d+)/"), r"\1\2s/\3/"),
+    (re.compile(r"(^|/)(cls_tower|box_tower|bbox_tower|fcn|conv_fcn|lateral|bifpn)(\d+)/"),
+     r"\1\2/\3/"),
+    (re.compile(r"(^|/)(td|bu)(\d+)_(dw|pw|bn)/"), r"\1convs/\2\3/\4/"),
+)
+_TRANSPOSED = re.compile(r"(^|/)(deconv|kps_score_lowres)/kernel$")
 _STAGE = re.compile(r"^encoder/stage(\d+)/(vblock|tlayer)(\d)/(.*)$")
 _TOWER = re.compile(r"^(clip/(?:visual|text)/transformer)/block/(.*)$")
 
@@ -117,6 +146,20 @@ def slinet_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
                 flat[f"{m[1]}/{i}/{m[2]}"] = value[i]
         else:
             flat[path] = value
+    return _to_state(flat)
+
+
+def zoo_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax params of a detector-zoo module (nested dict of arrays) ->
+    state_dict of its port."""
+    flat = {}
+    for path, value in _flatten(params).items():
+        if _TRANSPOSED.search(path):  # HWIO, unflipped -> [in, out, kh, kw], flipped
+            path = path[:-len("kernel")] + "weight"
+            value = value[::-1, ::-1].transpose(2, 3, 0, 1)
+        for pattern, repl in _ZOO_RENAMES:
+            path = pattern.sub(repl, path)
+        flat[path] = value
     return _to_state(flat)
 
 

@@ -1,17 +1,18 @@
-"""Swin-T pieces for the fused GLIP encoder (counterpart of
-`lpi_tpu/models/glip/swin.py`).
+"""Swin-T for the fused GLIP encoder and as a standalone tower (counterpart
+of `lpi_tpu/models/glip/swin.py`).
 
 Window attention with the relative-position bias and the shifted-window
-mask, the Swin block, patch merging, and the tower's steppable parts
-(`embed`, `downsample`, `stage_norm`) that the fused encoder drives between
-its own blocks. Token tensors are [B, H*W, C]; feature maps are NHWC. GELU
+mask, the Swin block, patch merging, the tower's steppable parts (`embed`,
+`downsample`, `stage_norm`) that the fused encoder drives between its own
+blocks, and `SwinTransformer`, the whole tower (the backbone registry's
+"swint-fpn-retinanet"). Token tensors are [B, H*W, C]; feature maps are NHWC. GELU
 is exact; norms run in fp32.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -198,3 +199,37 @@ class SwinStem(nn.Module):
         """Per-stage output norm -> NHWC feature map."""
         out = self.out_norms[stage](x)
         return out.reshape(x.shape[0], H, W, self.dims[stage]).to(self.dtype)
+
+
+class SwinTransformer(SwinStem):
+    """The Swin tower with its blocks: images [B, H, W, 3] -> the NHWC maps
+    of the stages in `out_stages` ('stage{s + 2}' naming, as GLIP's). Stage
+    0's out-norm is the identity; a stage not in `out_stages` has none."""
+
+    def __init__(self, patch_size: int = 4, embed_dim: int = 96,
+                 depths: Sequence[int] = (2, 2, 6, 2),
+                 num_heads: Sequence[int] = (3, 6, 12, 24), window_size: int = 7,
+                 mlp_ratio: float = 4.0, out_stages: Sequence[int] = (2, 3, 4),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(patch_size, embed_dim, depths, dtype)
+        self.out_stages = tuple(out_stages)
+        self.out_norms = nn.ModuleList(
+            LayerNorm(d, eps=1e-5) if s > 0 and s + 2 in self.out_stages else nn.Identity()
+            for s, d in enumerate(self.dims))
+        self.blocks = nn.ModuleList(
+            nn.ModuleList(SwinBlock(d, num_heads[s], window_size,
+                                    0 if b % 2 == 0 else window_size // 2, mlp_ratio, dtype)
+                          for b in range(depth))
+            for s, (d, depth) in enumerate(zip(self.dims, depths)))
+
+    def forward(self, images: torch.Tensor) -> List[torch.Tensor]:
+        x, H, W = self.embed(images)
+        outs = []
+        for s, stage in enumerate(self.blocks):
+            for block in stage:
+                x = block(x, H, W)
+            if s + 2 in self.out_stages:
+                outs.append(self.stage_norm(s, x, H, W))
+            if s < len(self.blocks) - 1:
+                x, H, W = self.downsample(s, x, H, W)
+        return outs

@@ -81,26 +81,78 @@ class Conv(nn.Conv2d):
 
     Stride-2 'SAME' pads asymmetrically on even inputs (0 before, 1 after),
     which torch's symmetric `padding=` cannot express, so the pad is
-    explicit."""
+    explicit. `padding=p` pads p on every side instead (Flax's
+    `padding=[(p, p)] * 2`); `groups` is Flax's `feature_group_count`."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, bias: bool = True,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None, groups: int = 1,
+                 padding: Optional[int] = None):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
-                         padding=0, bias=bias)
+                         padding=0, bias=bias, groups=groups)
         self.compute_dtype = compute_dtype
+        self.explicit_padding = padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = _compute_dtype(x, self.weight, self.compute_dtype)
         _, H, W, _ = x.shape
         k, s = self.kernel_size[0], self.stride[0]
-        ph, pw = same_padding(H, k, s), same_padding(W, k, s)
+        if self.explicit_padding is None:
+            ph, pw = same_padding(H, k, s), same_padding(W, k, s)
+        else:
+            ph = pw = (self.explicit_padding,) * 2
         xc = x.to(cd).permute(0, 3, 1, 2)
         if any(ph + pw):
             xc = F.pad(xc, (pw[0], pw[1], ph[0], ph[1]))
         b = None if self.bias is None else self.bias.to(cd)
-        y = F.conv2d(xc, self.weight.to(cd), b, stride=s)
+        y = F.conv2d(xc, self.weight.to(cd), b, stride=s, groups=self.groups)
         return y.permute(0, 2, 3, 1)
+
+
+def conv_transpose_padding(k: int, s: int) -> Tuple[int, int]:
+    """`jax.lax.conv_transpose`'s 'SAME' padding (low, high) of the dilated
+    input, for kernel k and stride s."""
+    total = k + s - 2
+    low = k - 1 if s > k - 1 else -(-total // 2)
+    return low, total - low
+
+
+class ConvTranspose(nn.ConvTranspose2d):
+    """`flax.linen.ConvTranspose` with 'SAME' padding on NHWC tensors: the
+    input dilated by the stride, padded as `conv_transpose_padding` says and
+    correlated with Flax's kernel as it is (`transpose_kernel=False`).
+    `F.conv_transpose2d` correlates the dilated input, padded k - 1 - p a
+    side, with its weight flipped in space, so the weight here is Flax's
+    HWIO kernel flipped in H and W, laid out [in, out, kh, kw]
+    (`bridge.py`), and p = k - 1 - low. Output side: input side x stride.
+    Only kernels and strides whose 'SAME' padding is even on both sides
+    (the zoo's 2x2 and 4x4 at stride 2) are taken."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int, bias: bool = True,
+                 compute_dtype: Optional[torch.dtype] = None):
+        low, high = conv_transpose_padding(kernel_size, stride)
+        if low != high:
+            raise ValueError(f"ConvTranspose: 'SAME' pads {low} and {high} for kernel "
+                             f"{kernel_size}, stride {stride}; only even padding is supported")
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         padding=kernel_size - 1 - low, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = _compute_dtype(x, self.weight, self.compute_dtype)
+        b = None if self.bias is None else self.bias.to(cd)
+        y = F.conv_transpose2d(x.to(cd).permute(0, 3, 1, 2), self.weight.to(cd), b,
+                               stride=self.stride, padding=self.padding)
+        return y.permute(0, 2, 3, 1)
+
+
+def max_pool_same(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    """`flax.linen.max_pool` with 'SAME' padding (-inf) on NHWC tensors."""
+    _, H, W, _ = x.shape
+    ph, pw = same_padding(H, k, stride), same_padding(W, k, stride)
+    xc = F.pad(x.permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+    return F.max_pool2d(xc, k, stride).permute(0, 2, 3, 1)
 
 
 class LayerNorm(nn.LayerNorm):

@@ -1,5 +1,6 @@
 """Bilinear sampling on NHWC feature maps, the gather core of the "exact"
-deformable conv (counterpart of `lpi_tpu/ops/bilinear.py`).
+deformable conv, ROIAlign and the deformable PS-ROI pooling (counterpart of
+`lpi_tpu/ops/bilinear.py`).
 
 The ROIAlign convention, not the window kernels' hat window: a point at or
 beyond -1 or the map's side contributes zero; a point in (-1, 0) (or in
@@ -13,15 +14,22 @@ coordinates.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from lpi_tpu_torch.ops.clip import clip
 
 
-def bilinear_sample(features: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def bilinear_sample(features: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
+                    batch: Optional[torch.Tensor] = None,
+                    channels: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sample `features` [B, H, W, C] at float coordinates `y`, `x` of shape
-    [B, ...]. -> [B, ..., C], zero where the point lies outside
-    (-1, H) x (-1, W)."""
+    [N, ...]. -> [N, ..., C], zero where the point lies outside
+    (-1, H) x (-1, W). Row n of the coordinates reads map n, or map
+    `batch[n]` when `batch` [N] (int) is given, without copying the maps.
+    `channels` (int, broadcastable to [..., Cs]) reads only those channels
+    at each point -> [N, ..., Cs]."""
     B, H, W, C = features.shape
     oob = (y <= -1.0) | (y >= H) | (x <= -1.0) | (x >= W)
     y = clip(y, 0.0, H - 1.0)
@@ -35,10 +43,14 @@ def bilinear_sample(features: torch.Tensor, y: torch.Tensor, x: torch.Tensor) ->
     hy = 1.0 - ly
     hx = 1.0 - lx
     flat = features.reshape(B, H * W, C)
-    rows = torch.arange(B, device=features.device).reshape((B,) + (1,) * (y.dim() - 1))
+    rows = torch.arange(B, device=features.device) if batch is None else batch.long()
+    rows = rows.reshape((-1,) + (1,) * (y.dim() - 1))
 
     def gather(yy, xx):
-        return flat[rows, (yy.long() * W + xx.long())]
+        lin = yy.long() * W + xx.long()
+        if channels is None:
+            return flat[rows, lin]
+        return flat[rows[..., None], lin[..., None], channels]
 
     val = (gather(y0, x0) * (hy * hx)[..., None]
            + gather(y0, x1) * (hy * lx)[..., None]

@@ -1,6 +1,6 @@
-"""Box utilities for the grounding postprocess and the ATSS losses
-(counterpart of `lpi_tpu/ops/boxes.py`): IoU, per-row GIoU, centres and the
-ATSS box coder. Boxes are [x1, y1, x2, y2]."""
+"""Box utilities for the grounding postprocess, the ATSS losses and the
+detector zoo (counterpart of `lpi_tpu/ops/boxes.py`): IoU, pairwise and
+per-row GIoU, centres and the ATSS box coder. Boxes are [x1, y1, x2, y2]."""
 
 from __future__ import annotations
 
@@ -43,6 +43,20 @@ class _Prod2(torch.autograd.Function):
         x, out = ctx.saved_tensors
         g = grad.unsqueeze(-1)
         return torch.where((x == 0).any(), g * x.flip(-1), g * (out.unsqueeze(-1) / x))
+
+
+def box_giou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise generalized IoU in [-1, 1]: a [N,4], b [M,4] -> [N,M]."""
+    iou = box_iou(a, b)
+    lt = torch.minimum(a[:, None, :2], b[None, :, :2])
+    rb = torch.maximum(a[:, None, 2:], b[None, :, 2:])
+    wh = clip(rb - lt, 0.0)
+    hull = wh[..., 0] * wh[..., 1]
+    inter_lt = torch.maximum(a[:, None, :2], b[None, :, :2])
+    inter_rb = torch.minimum(a[:, None, 2:], b[None, :, 2:])
+    inter = _Prod2.apply(clip(inter_rb - inter_lt, 0.0))
+    union = box_area(a)[:, None] + box_area(b)[None, :] - inter
+    return iou - (hull - union) / clip(hull, 1e-9)
 
 
 def elementwise_giou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

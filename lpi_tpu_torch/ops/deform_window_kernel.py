@@ -76,12 +76,14 @@ def _add_window_sums(out, hp, oy, ox, g, m, Ho, Wo, stride=1):
     for one padded slab hp [B, ., ., C], added term by term in the hat sum's
     order (dy, then dx ascending); g None is a gate of 1."""
     span_y, span_x = stride * (Ho - 1) + 1, stride * (Wo - 1) + 1
+    hp = hp.float()
+    wxs = [_hat(ox, dx) for dx in range(-m, m + 2)]
     for dy in range(-m, m + 2):
         wy = _hat(oy, dy)
-        for dx in range(-m, m + 2):
-            coeff = wy * _hat(ox, dx) if g is None else g * wy * _hat(ox, dx)
+        gwy = wy if g is None else g * wy  # the same products, formed once a row
+        for dx, wx in zip(range(-m, m + 2), wxs):
             win = hp[:, dy + m:dy + m + span_y:stride, dx + m:dx + m + span_x:stride]
-            out = out + coeff[..., None] * win.float()
+            out = out + (gwy * wx)[..., None] * win
     return out
 
 
@@ -159,17 +161,18 @@ def _backward_reference(h_all, oy, ox, gate, ct, m, K, kw, stride, padded=False)
               else _tap_padded(h_all, k, Cout, m, kw)).float()
         dhp = torch.zeros_like(hp)
         g = 1.0 if gate is None else gate[:, k]
+        xs = [(dx, _hat(ox[:, k], dx), _dhat(ox[:, k], dx)) for dx in range(-m, m + 2)]
         for dy in range(-m, m + 2):
             wy, gy = _hat(oy[:, k], dy), _dhat(oy[:, k], dy)
+            ggy, gwy = g * gy, g * wy  # the same products, formed once a row
             rows = slice(dy + m, dy + m + span_y, stride)
-            for dx in range(-m, m + 2):
-                wx, gx = _hat(ox[:, k], dx), _dhat(ox[:, k], dx)
+            for dx, wx, gx in xs:
                 cols = slice(dx + m, dx + m + span_x, stride)
                 s = (ct * hp[:, rows, cols]).sum(-1)
-                doy[:, k] += g * gy * wx * s
-                dox[:, k] += g * wy * gx * s
+                doy[:, k] += ggy * wx * s
+                dox[:, k] += gwy * gx * s
                 dg[:, k] += wy * wx * s
-                dhp[:, rows, cols] += (g * wy * wx)[..., None] * ct
+                dhp[:, rows, cols] += (gwy * wx)[..., None] * ct
         dh[..., k * Cout:(k + 1) * Cout] = (dhp if padded else
                                             dhp[:, m + 1 - ky:m + 1 - ky + H,
                                                 m + 1 - kx:m + 1 - kx + W])

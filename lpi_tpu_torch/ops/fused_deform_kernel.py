@@ -58,12 +58,12 @@ def _sample_tap(fp, oy, ox, gate, k, m, kw, stride):
     B, _, _, C = fp.shape
     Ho, Wo = oy.shape[2], oy.shape[3]
     samp = torch.zeros((B, Ho, Wo, C), dtype=torch.float32, device=fp.device)
+    wxs = [_hat(ox[:, k], dx) for dx in range(-m, m + 2)]
     for dy in range(-m, m + 2):
-        wy = _hat(oy[:, k], dy)
-        for dx in range(-m, m + 2):
-            coeff = gate[:, k] * wy * _hat(ox[:, k], dx)
+        gwy = gate[:, k] * _hat(oy[:, k], dy)  # the same products, formed once a row
+        for dx, wx in zip(range(-m, m + 2), wxs):
             rows, cols = _window(k, dy, dx, m, kw, Ho, Wo, stride)
-            samp = samp + coeff[..., None] * fp[:, rows, cols]
+            samp = samp + (gwy * wx)[..., None] * fp[:, rows, cols]
     return samp
 
 
@@ -102,16 +102,17 @@ def fused_deform_backward_reference(feats, oy, ox, gate, w, ct, m: int, kw: int 
             samp = _sample_tap(fp, oy, ox, gate, k, m, kw, stride)
             dw[k] = torch.matmul(samp.reshape(-1, C).T, ct.reshape(-1, ct.shape[-1]))
         g = gate[:, k]
+        xs = [(dx, _hat(ox[:, k], dx), _dhat(ox[:, k], dx)) for dx in range(-m, m + 2)]
         for dy in range(-m, m + 2):
             wy, gy = _hat(oy[:, k], dy), _dhat(oy[:, k], dy)
-            for dx in range(-m, m + 2):
-                wx, gx = _hat(ox[:, k], dx), _dhat(ox[:, k], dx)
+            ggy, gwy = g * gy, g * wy  # the same products, formed once a row
+            for dx, wx, gx in xs:
                 rows, cols = _window(k, dy, dx, m, kw, Ho, Wo, stride)
                 s = (u * fp[:, rows, cols]).sum(-1)
-                doy[:, k] += g * gy * wx * s
-                dox[:, k] += g * wy * gx * s
+                doy[:, k] += ggy * wx * s
+                dox[:, k] += gwy * gx * s
                 dg[:, k] += wy * wx * s
-                dfp[:, rows, cols] += (g * wy * wx)[..., None] * u
+                dfp[:, rows, cols] += (gwy * wx)[..., None] * u
     return dfp[:, m + 1:m + 1 + H, m + 1:m + 1 + W], doy, dox, dg, dw
 
 

@@ -67,14 +67,15 @@ def _median_event_ms(run, reps: int, inner: int) -> float:
     return statistics.median(times)
 
 
-def device_time_ms(fn, reps: int = 20, inner: int = 1) -> float:
-    """Device time of one call: `inner` calls captured in a CUDA graph,
-    replayed `reps` times between CUDA events; the median per call. The
-    graph takes the host's launch cost out of the measurement."""
+def device_time_ms(fn, reps: int = 20, inner: int = 1, warmup: int = 3) -> float:
+    """Device time of one call: `warmup` eager calls, then `inner` calls
+    captured in a CUDA graph, replayed `reps` times between CUDA events; the
+    median per call. The graph takes the host's launch cost out of the
+    measurement."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
+        for _ in range(warmup):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()

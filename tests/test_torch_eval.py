@@ -43,6 +43,7 @@ from lpi_tpu_torch.models.glip.postprocess import atss_postprocess_batch
 from lpi_tpu_torch.models.layers import GroupNorm
 from lpi_tpu_torch.ops import fused_deform_kernel as tfk
 from tests.test_composed_parity import _assert_close
+from tests.test_torch_train import forward_and_grads_of
 
 torch.set_num_threads(1)
 TASK = 1
@@ -85,7 +86,8 @@ def _recording(base):
 @pytest.fixture(scope="module")
 def pair():
     """The JAX learner and the port's learner on the same weights; the JAX
-    train forward, losses and pool gradients at task 1 (one compile), and
+    train forward, losses and pool gradients at task 1 (one trace of the
+    forward, `forward_and_grads_of`), and
     both learners' `evaluate` over tasks 0 and 1 on the same task keys."""
     jtok = JTokenizer(max_len=16, vocab_size=512)
     tok = BertTokenizer(max_len=16, vocab_size=512)
@@ -96,15 +98,7 @@ def pair():
     jl = jgl.GroundingLearner(_gate_tiny(jc), task_sim_matrix=np.eye(3), sample_batch=batch)
     pools, frozen = jgl._split_params(jl.params)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-
-    @jax.jit
-    def forward_and_grads(pools, frozen, b):
-        params = jgl._merge(pools, frozen)
-        out = jl.model.apply({"params": params}, b["images"], b["input_ids"],
-                             b["attention_mask"], TASK)
-        return out, jax.value_and_grad(jl._losses, has_aux=True)(pools, frozen, b, TASK)
-
-    (flat, _, vis_p, txt_p), ((total, metrics), grads) = forward_and_grads(
+    (flat, _, vis_p, txt_p), ((total, metrics), grads) = forward_and_grads_of(jl, TASK)(
         pools, frozen, jbatch)
     tl = tgl.GroundingLearner(_gate_tiny(tc), task_sim_matrix=np.eye(3),
                               init_params=params_from_jax(jax.tree.map(np.asarray, jl.params),

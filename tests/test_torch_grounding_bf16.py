@@ -61,7 +61,7 @@ from lpi_tpu.models.glip.vldyhead import VLDyHead as JHead
 from lpi_tpu_torch import config as tc
 from lpi_tpu_torch.bridge import params_from_jax
 from lpi_tpu_torch.continual import grounding_learner as tgl
-from tests.test_torch_train import TASK, _tiny, _torch_names
+from tests.test_torch_train import TASK, ForwardSpy, _tiny, _torch_names
 
 torch.set_num_threads(1)
 STEP = 2.0 ** -8
@@ -108,6 +108,20 @@ def _report(what, errors, bars):
           + ", ".join(f"{k} {errors[k] / STEP:.2f} ({bars[k] / STEP:.2f})" for k in errors))
 
 
+class _FpnSpy(ForwardSpy):
+    """A `ForwardSpy` that also captures the FPN's output of each train
+    forward: it keeps (outputs, intermediates) and returns the outputs."""
+
+    def apply(self, *args, **kw):
+        if kw.get("method") is not None:
+            return self.model.apply(*args, **kw)
+        out, inter = self.model.apply(
+            *args, capture_intermediates=lambda m, method: m.name == "fpn"
+            and method == "__call__", **kw)
+        self.seen.append((out, inter))
+        return out
+
+
 @pytest.fixture(scope="module")
 def carried():
     """Both packages' tiny bf16 learners on one set of weights, the JAX
@@ -122,15 +136,21 @@ def carried():
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     j32 = JModel(_tiny(jc))
 
+    spy = _FpnSpy(jl.model)
+
+    def total(p, b):
+        return jl._losses(p, frozen, b, TASK)[0], spy.seen[-1]
+
     @jax.jit
     def forwards_and_grads(pools, frozen, b):
-        params = jgl._merge(pools, frozen)
+        """The bf16 forward is the one inside `_losses` (one trace of it)."""
+        model, jl.model = jl.model, spy
+        try:
+            grads, ((flat, language, _, _), inter) = jax.grad(total, has_aux=True)(pools, b)
+        finally:
+            jl.model = model
         args = (b["images"], b["input_ids"], b["attention_mask"], TASK)
-        (flat, language, _, _), inter = jl.model.apply(
-            {"params": params}, *args,
-            capture_intermediates=lambda m, method: m.name == "fpn" and method == "__call__")
-        return (flat, j32.apply({"params": params}, *args)[0],
-                jax.grad(lambda p: jl._losses(p, frozen, b, TASK)[0])(pools),
+        return (flat, j32.apply({"params": jgl._merge(pools, frozen)}, *args)[0], grads,
                 inter["intermediates"]["fpn"]["__call__"][0], language["embedded"])
 
     jflat, jflat32, jgrads, feats, embedded = forwards_and_grads(pools, frozen, jb)

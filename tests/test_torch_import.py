@@ -28,7 +28,7 @@ def test_port_and_chip_smoke_import_without_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, check=True,
                          capture_output=True, text=True, timeout=300).stdout.split()
     n_modules, bad = int(out[0]), " ".join(out[1:])
-    assert n_modules >= 17
+    assert n_modules >= 90
     assert bad == "[]", bad
 
 

@@ -1023,3 +1023,138 @@ def test_scale_grouped_captured_step_equals_eager(card):
     theirs = dict(eager.model.named_parameters())
     for name, p in captured.model.named_parameters():
         assert torch.equal(p, theirs[name]), name
+
+
+# ---- the detector zoo: its ROI ops, the NMS family, a backbone and a head
+# on the card against the same code on the CPU (fp32, TF32 off), at the
+# repo's bar: relative Frobenius 1e-4 with an absolute cap of 3e-3
+
+
+def _zoo_close(card, cpu, rel=1e-4, atol=3e-3):
+    card = card.detach().double().cpu().numpy()
+    cpu = cpu.detach().double().numpy()
+    frob = np.linalg.norm(card - cpu) / max(np.linalg.norm(cpu), 1e-6)
+    assert frob <= rel, f"relative Frobenius error {frob:.3e} > {rel}"
+    np.testing.assert_allclose(card, cpu, atol=atol, rtol=0)
+
+
+def _zoo_rois(rng, n, side, batch=2):
+    xy = rng.uniform(-side / 8, side, (n, 2))
+    wh = rng.uniform(2, side / 2, (n, 2))
+    b = rng.randint(0, batch, (n, 1)).astype(np.float32)
+    return np.concatenate([b, xy, xy + wh], 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("mode", ["avg", "max"])
+def test_zoo_roi_align_matches_cpu(card, mode):
+    from lpi_tpu_torch.continual.keys import exact_fp32
+    from lpi_tpu_torch.ops.roi_align import roi_align
+
+    rng = np.random.RandomState(0)
+    feats = torch.from_numpy(rng.randn(2, 25, 38, 16).astype(np.float32))
+    rois = _zoo_rois(rng, 40, 300.0)
+    rois[5, 0] = -1
+    rois = torch.from_numpy(rois)
+    ct = torch.from_numpy(rng.randn(40, 7, 7, 16).astype(np.float32))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        x = feats.to(dev).requires_grad_()
+        with exact_fp32():
+            out = roi_align(x, rois.to(dev), 7, 1 / 16, 2, mode)
+            (out * ct.to(dev)).sum().backward()
+        outs.append((out, x.grad))
+    for a, b in zip(*outs):
+        _zoo_close(a, b)
+
+
+@pytest.mark.parametrize("offsets", [False, True])
+def test_zoo_deform_psroi_pool_matches_cpu(card, offsets):
+    from lpi_tpu_torch.ops.deform_pool import deform_psroi_pool
+
+    rng = np.random.RandomState(1)
+    feats = torch.from_numpy(rng.randn(2, 20, 30, 8 * 49).astype(np.float32))
+    rois = _zoo_rois(rng, 30, 320.0)
+    rois[0, 1:] = [10.5, 20.5, 100.5, 90.5]
+    rois = torch.from_numpy(rois)
+    trans = torch.from_numpy((rng.randn(30, 2, 7, 7) * 0.3).astype(np.float32))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        leaves = [feats.to(dev).requires_grad_()] + (
+            [trans.to(dev).requires_grad_()] if offsets else [])
+        out = deform_psroi_pool(leaves[0], rois.to(dev), leaves[1] if offsets else None,
+                                out_size=7, out_dim=8, spatial_scale=1 / 16, group_size=7)
+        out.square().sum().backward()
+        outs.append([out] + [x.grad for x in leaves])
+    for a, b in zip(*outs):
+        _zoo_close(a, b)
+
+
+def test_zoo_nms_family_matches_cpu(card):
+    """nms_mask, ml_nms_mask and nms_padded equal; soft_nms's picks equal
+    and its decayed scores within relative 1e-5."""
+    from lpi_tpu_torch.ops.nms import ml_nms_mask, nms_mask, nms_padded, soft_nms
+
+    rng = np.random.RandomState(2)
+    c = np.repeat(rng.uniform(0, 500, (40, 2)), 5, 0) + rng.randn(200, 2) * 5
+    s = rng.uniform(20, 80, (200, 2))
+    boxes = torch.from_numpy(np.concatenate([c - s / 2, c + s / 2], 1).astype(np.float32))
+    scores = torch.from_numpy(rng.permutation(200).astype(np.float32) / 200 + 0.01)
+    scores[7] = float("-inf")
+    labels = torch.from_numpy(rng.randint(0, 5, 200))
+    card_b, card_s, card_l = boxes.cuda(), scores.cuda(), labels.cuda()
+    assert torch.equal(nms_mask(card_b, card_s, 0.5).cpu(), nms_mask(boxes, scores, 0.5))
+    assert torch.equal(ml_nms_mask(card_b, card_s, card_l, 0.5).cpu(),
+                       ml_nms_mask(boxes, scores, labels, 0.5))
+    for a, b in zip(nms_padded(card_b, card_s, 0.5, 50), nms_padded(boxes, scores, 0.5, 50)):
+        assert torch.equal(a.cpu(), b)
+    finite = torch.where(torch.isfinite(scores), scores, torch.zeros(()))
+    (out, picked), (want, want_picked) = (soft_nms(card_b, finite.cuda()),
+                                          soft_nms(boxes, finite))
+    assert torch.equal(picked.cpu(), want_picked) and want_picked.any()
+    torch.testing.assert_close(out.cpu()[want_picked], want[want_picked], rtol=1e-5, atol=0)
+
+
+def test_zoo_backbone_and_head_match_cpu(card):
+    """ResNet-50 at full width on a 64 x 96 image, and the FCOS head (256
+    channels, 4 convs) with its losses and parameter gradient on levels of
+    a 128 x 192 image, from the same seeded weights."""
+    import copy
+
+    from lpi_tpu_torch.continual.keys import exact_fp32
+    from lpi_tpu_torch.models.glip.fcos import (DEFAULT_RANGES, FCOSHead, fcos_locations,
+                                                fcos_losses)
+    from lpi_tpu_torch.models.glip.resnet import ResNet, init_parameters
+
+    net = ResNet().eval()
+    init_parameters(net, torch.Generator().manual_seed(0))
+    x = torch.randn(1, 64, 96, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad(), exact_fp32():
+        for a, b in zip(copy.deepcopy(net).cuda()(x.cuda()), net(x)):
+            _zoo_close(a, b)
+
+    shapes = [(16, 24), (8, 12), (4, 6), (2, 3), (1, 2)]
+    locs = fcos_locations(shapes, (8, 16, 32, 64, 128))
+    points = torch.from_numpy(np.concatenate(locs))
+    ranges = torch.from_numpy(np.concatenate(
+        [np.tile(np.asarray(r, np.float32), (len(l), 1)) for l, r in zip(locs, DEFAULT_RANGES)]))
+    g = torch.Generator().manual_seed(2)
+    feats = [torch.randn(2, h, w, 256, generator=g) for h, w in shapes]
+    boxes = torch.tensor([[[10, 10, 60, 50], [30, 5, 120, 100], [0, 0, 0, 0]],
+                          [[50, 20, 90, 80], [0, 0, 0, 0], [0, 0, 0, 0]]], dtype=torch.float32)
+    labels = torch.tensor([[3, 80, 0], [17, 0, 0]])
+    valid = torch.tensor([[True, True, False], [True, False, False]])
+    head = FCOSHead(80)
+    init_parameters(head, torch.Generator().manual_seed(3))
+    results = []
+    for dev, h in (("cuda", copy.deepcopy(head).cuda()), ("cpu", head)):
+        with exact_fp32():
+            out = h([f.to(dev) for f in feats])
+            cat = lambda v, n: torch.cat([t.reshape(2, -1, n) for t in v], 1)  # noqa: E731
+            losses = fcos_losses(points.to(dev), ranges.to(dev), cat(out["cls_logits"], 80),
+                                 cat(out["ltrb"], 4), cat(out["centerness"], 1)[..., 0],
+                                 boxes.to(dev), labels.to(dev), valid.to(dev))
+            total = losses["loss_cls"] + losses["loss_reg"] + losses["loss_centerness"]
+            total.backward()
+        results.append([total.reshape(1), torch.cat([p.grad.reshape(-1) for p in h.parameters()])])
+    for a, b in zip(*results):
+        _zoo_close(a, b)

@@ -66,6 +66,47 @@ def _torch_names(flat_jax: dict) -> dict:
     return params_from_jax(tree, depths=(2, 2, 2, 2))
 
 
+class ForwardSpy:
+    """Stands in for a JAX learner's model: keeps what each train forward
+    (`apply` without a method) returns."""
+
+    def __init__(self, model):
+        self.model, self.seen = model, []
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def apply(self, *args, **kw):
+        out = self.model.apply(*args, **kw)
+        if kw.get("method") is None:
+            self.seen.append(out)
+        return out
+
+
+def forward_and_grads_of(jl, task=TASK):
+    """jit of (pools, frozen, batch) -> (the train forward's outputs,
+    ((total, metrics), pool gradients)) of `jl._losses` at `task`. The
+    forward is the one inside `_losses` (the model swapped for a
+    `ForwardSpy` while it is traced), so it is traced and compiled once."""
+    spy = ForwardSpy(jl.model)
+
+    def losses(pools, frozen, b):
+        total, metrics = jl._losses(pools, frozen, b, task)
+        return total, (metrics, spy.seen[-1])
+
+    @jax.jit
+    def forward_and_grads(pools, frozen, b):
+        model, jl.model = jl.model, spy
+        try:
+            (total, (metrics, out)), grads = jax.value_and_grad(losses, has_aux=True)(
+                pools, frozen, b)
+        finally:
+            jl.model = model
+        return out, ((total, metrics), grads)
+
+    return forward_and_grads
+
+
 @pytest.fixture(scope="module")
 def pair():
     """The JAX learner and the port's learner on the same weights, with the
@@ -76,14 +117,7 @@ def pair():
     jl = jgl.GroundingLearner(_tiny(jc), task_sim_matrix=np.eye(3), sample_batch=batch)
     pools, frozen = jgl._split_params(jl.params)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-
-    @jax.jit
-    def forward_and_grads(pools, frozen, b):
-        params = jgl._merge(pools, frozen)
-        out = jl.model.apply({"params": params}, b["images"], b["input_ids"],
-                             b["attention_mask"], TASK)
-        return out, jax.value_and_grad(jl._losses, has_aux=True)(pools, frozen, b, TASK)
-
+    forward_and_grads = forward_and_grads_of(jl)
     (flat, language, vis_p, txt_p), ((total, metrics), grads) = forward_and_grads(
         pools, frozen, jbatch)
     tl = tgl.GroundingLearner(_tiny(tc), task_sim_matrix=np.eye(3),
