@@ -133,7 +133,7 @@ weights, under deterministic algorithms:
 
    13. 13a: the retrieval step of phase 9 at `RetrievalConfig()` with the
        lpi section of `sprompts.json`, of `l2p.json` and with
-       `prompt_type="clip"`: 1 + 3 steps eager and 1 + 3 captured from
+       `prompt_type="clip"`: 1 + 2 steps eager and 1 + 2 captured from
        the same start, losses finite with the type's keys (the auxiliary
        losses are "lpi"'s alone), captured equal to eager in bits, only
        row 1 of every pool leaf moved (L2P's shared pool included), no
@@ -142,7 +142,7 @@ weights, under deterministic algorithms:
        or the named error where the reference has no L2P evaluation; 13b:
        phase 9b's fp32 loss and pool gradient, card vs CPU, for S-Prompts
        and L2P, with L2P's chosen entries equal; 13c: phase 5's step
-       ("pallas", batch 4, `honest_offsets`, 1 + 3 steps a mode) with the
+       ("pallas", batch 4, `honest_offsets`, 1 + 2 steps a mode) with the
        grounding section of `sprompts.json` and with `maple.json` (54 / 24 /
        54 / 24 launches by
        the counters and by kernel name, captured equal to eager in bits,
@@ -184,7 +184,7 @@ processes started by `lpi_tpu_torch.dryrun.run_world`, so that no process
 group touches the other phases:
 
    15. 15a: one NCCL rank on the card, a (1, 1) (data, model) mesh, the
-       retrieval step at `RetrievalConfig()` (b64, task 1) 1 + 3 steps a
+       retrieval step at `RetrievalConfig()` (b64, task 1) 1 + 2 steps a
        mode: a learner without a mesh and one on the mesh (its collectives
        inside the graph), each eager and captured, all four equal in bits,
        no deform kernel launched; 15b: the same for the grounding step at
@@ -210,7 +210,7 @@ after it:
        launched in each; 16b: multi-scale training at full width (b4, bf16,
        task 1, `honest_offsets`) on that set loaded with
        `AugmentConfig(multi_scale=(480, 560, 640, 720, 800))`: a pad-to-max
-       batch at 800 px through phase 5's step (1 + 3 steps eager and 1 + 3
+       batch at 800 px through phase 5's step (1 + 2 steps eager and 1 + 2
        captured, equal in bits, 54 / 24 / 54 / 24 by counter and by kernel
        name, median, samples/s, busy share, peak memory); the first
        scale-grouped batches at 560 and 800 px (`batches_grouped`), each
@@ -256,6 +256,29 @@ classes, seeded weights; plain PyTorch, no kernel of the repo:
        `soft_nms_cpu` on 2,000 boxes against `ops/nms.py` on the card and
        `roi_align_cpu` against `ops/roi_align.py` on the card. Any
        comparison over its bar fails the phase at its end.
+
+The tooling (`lpi_tpu_torch/core/{profiling,ema,logging}.py`,
+`continual/freeze.py`, `serve/predictor.py:launch_webui`, the command
+`serve`) around the main path:
+
+   18. 18a: phase 5's step (`GroundingConfig()`, b4, 448 px, bf16,
+       "pallas", task 1, `honest_offsets`), 1 + 5 captured: `StepTimer`'s
+       p50 beside the host-clock median; one step under `profiling.trace`,
+       its Chrome trace's window kernels by name (54 / 24 / 54 / 24);
+       `device_memory_stats` against the allocator; an EMA of every
+       parameter updated after each step, one update timed beside its
+       byte bound and held card vs CPU at relative 1e-6 (equal bits
+       printed); one eager gradient of `_losses`
+       through `mask_grads` (row 1 kept, the other rows zero) and
+       `count_trainable` against the pools' row-1 scalars; the losses
+       through `MetricLogger` and one `log_line`; 18b: `compiled_flops`
+       of one eager b64 retrieval step (`RetrievalConfig()`) against
+       `retrieval_step_flops`, within 5%; 18c: `serve` at full width
+       with a stub `gradio` (whether a real one imports is printed), its
+       `infer` on a seeded 480x640 image with "all" and "R@1" equal pixel
+       for pixel to the drawings of the same predictor's `predict`, at the
+       config's thresholds and at 0, the launch counters over the requests
+       and one request's window kernels by name (54 / 24).
 
 Each phase drops its learners and predictors, and with them their graphs'
 memory pools, before the next.
@@ -583,6 +606,7 @@ def _profile(run, what):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    start = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         run()
@@ -594,7 +618,7 @@ def _profile(run, what):
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     log(f"profile: one {what} {wall:.3f} ms wall (profiled), device busy "
         f"{busy:.3f} ms ({100 * busy / wall:.1f}%), {sum(e.count for e in kernels)} "
-        f"device kernels")
+        f"device kernels; {time.perf_counter() - start:.3f} s with the profiler's own work")
     for e in events:
         if e.is_user_annotation and e.device_type == DeviceType.CPU:
             log(f"profile range {e.key}: {e.cpu_time_total / 1e3:.3f} ms host")
@@ -602,6 +626,15 @@ def _profile(run, what):
         log(f"profile kernel {e.self_device_time_total / 1e3:.3f} ms x{e.count}: "
             f"{e.key[:100]}")
     return kernels, {"wall": wall, "busy": busy, "kernels": sum(e.count for e in kernels)}
+
+
+# the window kernels' wrappers by (stride, backward), as their device
+# kernels' names give them
+WINDOW_KERNELS = {(1, False): "window_accumulate_taps_inpad",
+                  (2, False): "window_accumulate_taps_s2",
+                  (1, True): "window_accumulate_taps_inpad_backward",
+                  (2, True): "window_accumulate_taps_s2_backward"}
+WINDOW_KERNEL_NAME = re.compile(r"window_taps(_bwd)?_kernel<[^,]+, (\d)")
 
 
 def replay_launches(kernels, route) -> dict:
@@ -616,10 +649,7 @@ def replay_launches(kernels, route) -> dict:
         out = {"fused_deform": times.get("fused_fwd_kernel", (0, 0.0))[0],
                "fused_deform_backward": times.get("fused_bwd_sample_kernel", (0, 0.0))[0]}
         return {k: n for k, n in out.items() if n}
-    names = {(1, False): "window_accumulate_taps_inpad", (2, False): "window_accumulate_taps_s2",
-             (1, True): "window_accumulate_taps_inpad_backward",
-             (2, True): "window_accumulate_taps_s2_backward"}
-    return {names[key]: n for key, (n, _) in deform_kernel_times(kernels).items()}
+    return {WINDOW_KERNELS[key]: n for key, (n, _) in deform_kernel_times(kernels).items()}
 
 
 def check_replay_launches(dk, fk, cfg, kernels, train: bool, what: str) -> dict:
@@ -656,13 +686,20 @@ def same_bits(runs, what: str) -> None:
         raise AssertionError(f"{what}: captured and eager disagree beyond the bar")
 
 
+def busy_share(stats) -> str:
+    """A profiled call's device busy share, or "not profiled"."""
+    if stats is None:
+        return "not profiled"
+    return (f"device busy {stats['busy']:.3f} of {stats['wall']:.3f} ms "
+            f"({100 * stats['busy'] / stats['wall']:.1f}%) in a profiled call, "
+            f"{stats['kernels']} device kernels a call")
+
+
 def mode_summary(runs, what: str, batch: int) -> None:
     for mode, r in runs.items():
-        st = r["stats"]
         log(f"{what} {mode} on {card_line()}: median {r['med']:.3f} ms, "
-            f"{1e3 * batch / r['med']:.3f} samples/s, device busy {st['busy']:.3f} of "
-            f"{st['wall']:.3f} ms ({100 * st['busy'] / st['wall']:.1f}%) in a profiled call, "
-            f"{st['kernels']} device kernels a call, peak memory {r['peak'] / 2**30:.3f} GiB")
+            f"{1e3 * batch / r['med']:.3f} samples/s, {busy_share(r['stats'])}, peak memory "
+            f"{r['peak'] / 2**30:.3f} GiB")
 
 
 def deform_kernel_times(kernels):
@@ -670,7 +707,7 @@ def deform_kernel_times(kernels):
     by (stride, backward)."""
     out = {}
     for e in kernels:
-        m = re.search(r"window_taps(_bwd)?_kernel<[^,]+, (\d)", e.key)
+        m = WINDOW_KERNEL_NAME.search(e.key)
         if m:
             key = (int(m.group(2)), bool(m.group(1)))
             n, ms = out.get(key, (0, 0.0))
@@ -739,7 +776,7 @@ def expected_counts(dk, fk, cfg, n: int, train: bool) -> dict:
 
 
 def train_phase(dk, fk, cfg, tok, records, what=None, keep_model=False, n_steps=5,
-                batch=None):
+                batch=None, profile_eager=True):
     """Phases 5 and 5b: the full-width train step, batch 4, 448 px, bf16,
     task 1, on the route `cfg.dyhead.deform_impl` names, with the offset
     convs at a trained model's size (`honest_offsets`): 1 + `n_steps` steps
@@ -751,8 +788,9 @@ def train_phase(dk, fk, cfg, tok, records, what=None, keep_model=False, n_steps=
     by kernel name; captured against eager in bits; the frozen parameters
     and the other tasks' rows bit-identical. `what` names the run in the
     log (the route by default); `batch` replaces the synthetic 448 px batch
-    (phase 16b's multi-scale batch). -> the batch, and with `keep_model`
-    the trained model too."""
+    (phase 16b's multi-scale batch). `profile_eager=False` profiles the
+    captured step alone (the profiler's own work over an eager step takes
+    17-22 s). -> the batch, and with `keep_model` the trained model too."""
     from lpi_tpu_torch.bench import deterministic, honest_offsets
     from lpi_tpu_torch.continual.grounding_learner import GroundingLearner
     from lpi_tpu_torch.data.grounding import synthetic_grounding_task
@@ -813,12 +851,15 @@ def train_phase(dk, fk, cfg, tok, records, what=None, keep_model=False, n_steps=
                 f"{losses[-1]['total']:.6f}; " + ", ".join(f"{k} {v:.6f}"
                                                           for k, v in losses[-1].items()))
             pools = {n: p.detach().clone() for n, p in learner.pools.items()}
-            kernels, stats = _profile(lambda: step(batch), f"train step ({label}, {mode})")
-            log_deform_kernels(kernels)
-            per_step = check_replay_launches(dk, fk, cfg, kernels, True,
-                                             f"train {label} ({mode})")
-            if route == "fused":
-                record_fused_split(kernels, records, expected_counts(dk, fk, cfg, 1, train=True))
+            stats = per_step = None
+            if mode == "captured" or profile_eager:
+                kernels, stats = _profile(lambda: step(batch), f"train step ({label}, {mode})")
+                log_deform_kernels(kernels)
+                per_step = check_replay_launches(dk, fk, cfg, kernels, True,
+                                                 f"train {label} ({mode})")
+                if route == "fused":
+                    record_fused_split(kernels, records,
+                                       expected_counts(dk, fk, cfg, 1, train=True))
             runs[mode] = dict(losses=losses, pools=pools, med=med, peak=peak, stats=stats,
                               launches=launches, per_step=per_step)
             del step
@@ -866,11 +907,8 @@ def record_fused_split(kernels, records, calls):
 
 
 def log_deform_kernels(kernels):
-    names = {(1, False): "window_accumulate_taps_inpad", (2, False): "window_accumulate_taps_s2",
-             (1, True): "window_accumulate_taps_inpad_backward",
-             (2, True): "window_accumulate_taps_s2_backward"}
     for key, (n, ms) in sorted(deform_kernel_times(kernels).items()):
-        log(f"profile deform kernel {names[key]}: {ms:.3f} ms device, x{n}")
+        log(f"profile deform kernel {WINDOW_KERNELS[key]}: {ms:.3f} ms device, x{n}")
     for name, (n, ms) in sorted(fused_kernel_times(kernels).items()):
         log(f"profile fused deform kernel {name}: {ms:.3f} ms device, x{n}")
 
@@ -1418,7 +1456,8 @@ def retrieval_step_flops(cfg) -> int:
     return 2 * linear + 3 * attn + stem
 
 
-def retrieval_train_phase(dk, fk, cfg=None, steps=RETRIEVAL_STEPS, what="retrieval"):
+def retrieval_train_phase(dk, fk, cfg=None, steps=RETRIEVAL_STEPS, what="retrieval",
+                          profile_eager=True):
     """Phase 9 (and 13a): the full-width continual-retrieval step (SliNet on
     `RetrievalConfig()`: CLIP ViT-B/16 at 224 px, 213 vision tokens, LPI
     prompts; batch 64, bf16; or `cfg`) at task 1 on the bench's inputs,
@@ -1486,7 +1525,9 @@ def retrieval_train_phase(dk, fk, cfg=None, steps=RETRIEVAL_STEPS, what="retriev
             log(f"{what} step ({mode}): " + ", ".join(f"{k} {v:.6f}"
                                                      for k, v in losses[-1].items()))
             pools = {n: p.detach().clone() for n, p in learner.pools.items()}
-            kernels, stats = _profile(lambda: step(batch), f"{what} train step ({mode})")
+            kernels = stats = None
+            if mode == "captured" or profile_eager:
+                kernels, stats = _profile(lambda: step(batch), f"{what} train step ({mode})")
             runs[mode] = dict(losses=losses, pools=pools, med=med, peak=peak, stats=stats,
                               kernels=kernels)
             del step
@@ -2035,7 +2076,7 @@ def cli_phase(dk, fk, gen, records):
 
 
 # ---- phase 13: the baseline prompt types --------------------------------------
-BASELINE_STEPS = 3
+BASELINE_STEPS = 2
 
 
 def cpu_depth_cut(cfg):
@@ -2132,7 +2173,7 @@ def cli_baseline_phase(dk, fk, work):
 def baseline_phase(dk, fk, tok):
     """Phase 13: the baseline prompt types at full width, seeded weights,
     under deterministic algorithms. 13a: the retrieval step with S-Prompts,
-    L2P and zero-shot CLIP (`retrieval_train_phase`, 1 + 3 steps a mode);
+    L2P and zero-shot CLIP (`retrieval_train_phase`, 1 + 2 steps a mode);
     13b: their fp32 loss and pool gradient, card vs CPU, S-Prompts and L2P;
     13c: the grounding step ("pallas", batch 4, `honest_offsets`) with
     S-Prompts and with MaPLe (`train_phase`), then one request each,
@@ -2148,7 +2189,7 @@ def baseline_phase(dk, fk, tok):
         for kind in ("sprompts", "l2p", "clip"):
             t = time.perf_counter()
             retrieval_train_phase(dk, fk, baseline_config(kind, "retrieval"), BASELINE_STEPS,
-                                  f"retrieval {kind}")
+                                  f"retrieval {kind}", profile_eager=False)
             log(f"phase 13a ({kind}): {time.perf_counter() - t:.3f} s")
         for kind in ("sprompts", "l2p"):
             t = time.perf_counter()
@@ -2159,7 +2200,7 @@ def baseline_phase(dk, fk, tok):
             t = time.perf_counter()
             cfg = baseline_config(kind, "grounding", batch_size=TRAIN_BATCH)
             batch, model = train_phase(dk, fk, cfg, tok, {}, f"pallas {kind}", keep_model=True,
-                                       n_steps=BASELINE_STEPS)
+                                       n_steps=BASELINE_STEPS, profile_eager=False)
             baseline_request(dk, fk, model, cfg, tok)
             del model
             torch.cuda.empty_cache()
@@ -2288,7 +2329,7 @@ def variants_phase(dk, fk, tok, records):
     t = time.perf_counter()
     step_records = {name: {} for name in records}
     batch = train_phase(dk, fk, cfg_ef, tok, step_records, "pallas early-fused",
-                        n_steps=VARIANT_STEPS)
+                        n_steps=VARIANT_STEPS, profile_eager=False)
     per_path["early_fuse_step"] = (
         {k: v["launches"] for k, v in step_records.items() if v},
         {k: v["replay_launches_per_step"] for k, v in step_records.items() if v},
@@ -2354,14 +2395,14 @@ def variants_phase(dk, fk, tok, records):
 
 
 # ---- phase 15: the distributed steps (a process group, a mesh) --------------
-MESH_RETRIEVAL_STEPS, MESH_GROUNDING_STEPS = 3, 2
+MESH_RETRIEVAL_STEPS, MESH_GROUNDING_STEPS = 2, 2
 
 
 def mesh_steps(dk, fk, learner, make_step, batch, steps, mode, before, what):
     """1 + `steps` steps of `make_step(eager)` from the pools `before`, in
     `mode` ("eager" or "captured"): the losses (finite), the pools after,
-    the launch counters, the median step, peak memory and one profiled
-    step."""
+    the launch counters, the median step, peak memory and, captured, one
+    profiled step."""
     with torch.no_grad():
         for name, p in learner.pools.items():
             p.copy_(before[name])
@@ -2387,7 +2428,9 @@ def mesh_steps(dk, fk, learner, make_step, batch, steps, mode, before, what):
     log(f"{what} ({mode}) on {card_line()}: median {med:.3f} ms over {steps} steps after the "
         f"first ({times[0]:.3f} ms); " + ", ".join(f"{k} {v:.6f}" for k, v in losses[-1].items()))
     pools = {n: p.detach().cpu().numpy() for n, p in learner.pools.items()}
-    kernels, stats = _profile(lambda: step(batch), f"{what} step ({mode})")
+    kernels = stats = None
+    if mode == "captured":
+        kernels, stats = _profile(lambda: step(batch), f"{what} step ({mode})")
     return dict(losses=losses, pools=pools, med=med, peak=peak, stats=stats,
                 launches=launches, kernels=kernels)
 
@@ -2421,9 +2464,9 @@ def held_to(run, ref, what, rel=1e-4):
 def mesh_table(runs, what, batch):
     """The medians of the runs side by side, with busy shares and peaks."""
     log(f"{what} on {card_line()}: " + "; ".join(
-        f"{mode} median {r['med']:.3f} ms ({1e3 * batch / r['med']:.3f} samples/s), device "
-        f"busy {100 * r['stats']['busy'] / r['stats']['wall']:.1f}% of a profiled step, peak "
-        f"{r['peak'] / 2**30:.3f} GiB" for mode, r in runs.items()))
+        f"{mode} median {r['med']:.3f} ms ({1e3 * batch / r['med']:.3f} samples/s), "
+        f"{busy_share(r['stats'])}, peak {r['peak'] / 2**30:.3f} GiB"
+        for mode, r in runs.items()))
 
 
 def mesh_path(dk, fk, kind, mesh, ref=None):
@@ -2487,7 +2530,7 @@ def mesh_path(dk, fk, kind, mesh, ref=None):
             if run["launches"] != want:
                 raise AssertionError(f"{phase} {key}: launches {run['launches']}, want {want} "
                                      f"over {calls} host calls")
-            if kind == "grounding":
+            if kind == "grounding" and mode == "captured":
                 check_replay_launches(dk, fk, cfg, run["kernels"], True,
                                       f"{phase} grounding {key}")
             runs[key] = run
@@ -2548,7 +2591,7 @@ def mesh_phase():
 # ---- phase 16: the dataset catalog, multi-scale training and TTA, the evaluators
 # GLIP's AUGMENT.MULT_MIN_SIZE_TRAIN, the range `lpi_tpu/data/samplers.py` names
 MULTI_SCALE = (480, 560, 640, 720, 800)
-MULTI_SCALE_STEPS = 3
+MULTI_SCALE_STEPS = 2
 GROUPED_SIDES = (560, 800)
 TTA_SCALES = (448, 560, 800)
 TTA_CPU_SCALE = 560  # the scale whose fp32 head outputs are held card vs CPU
@@ -2718,7 +2761,7 @@ def multiscale_train_phase(dk, fk, gen, tok, records, ann, images):
     """16b: multi-scale training at full width (b4, bf16, task 1,
     `honest_offsets`) on the fabricated RefExp set loaded with
     `AugmentConfig(multi_scale=MULTI_SCALE)`: a pad-to-max batch (800 px)
-    through `train_phase` (1 + 3 steps a mode, 54 / 24 / 54 / 24, captured
+    through `train_phase` (1 + 2 steps a mode, 54 / 24 / 54 / 24, captured
     equal to eager in bits, median, samples/s, busy share, peak memory),
     the scale-grouped batches at 560 and 800 (`grouped_steps`), then the
     window kernels at the level shapes of 800 and 560 px
@@ -2746,7 +2789,7 @@ def multiscale_train_phase(dk, fk, gen, tok, records, ann, images):
         raise AssertionError("16b: the multi-scale batches are not at their shapes")
     step_records = {name: {} for name in records}
     train_phase(dk, fk, cfg, tok, step_records, "pallas multi-scale 800 px",
-                n_steps=MULTI_SCALE_STEPS, batch=padded)
+                n_steps=MULTI_SCALE_STEPS, batch=padded, profile_eager=False)
     for name, rec in step_records.items():
         if rec:
             records[name].setdefault("multi_scale", {})["800px_step_launches"] = {
@@ -3532,6 +3575,308 @@ def zoo_phase() -> None:
         raise AssertionError(f"phase 17d: {len(worst[1])} comparisons over the bar: {worst[1]}")
 
 
+# ---- phase 18: the tooling around the full-width main path -----------------
+TOOLING_STEPS = 5  # captured steps after the first
+EMA_REPS = 5  # EMA updates timed (the median)
+HBM_BYTES_PER_S = 3.35e12  # an H100 SXM's memory rate (NVIDIA's data sheet)
+FLOP_RATIO_BAR = 0.05
+
+
+def trace_window_launches(logdir) -> dict:
+    """The window kernels' launches, by wrapper, among the device kernels of
+    the one Chrome trace that `core.profiling.trace` wrote into `logdir`."""
+    (name,) = [f for f in os.listdir(logdir) if f.endswith(".pt.trace.json")]
+    with open(os.path.join(logdir, name)) as f:
+        events = json.load(f)["traceEvents"]
+    counts = {}
+    for e in events:
+        m = WINDOW_KERNEL_NAME.search(e.get("name", "")) if e.get("cat") == "kernel" else None
+        if m:
+            key = WINDOW_KERNELS[(int(m.group(2)), bool(m.group(1)))]
+            counts[key] = counts.get(key, 0) + 1
+    log(f"trace {name}: {len(events)} events, {sum(e.get('cat') == 'kernel' for e in events)} "
+        f"device kernels, window kernels {counts}")
+    return counts
+
+
+def ema_card_vs_cpu(ema, params):
+    """One `update_ema` on the card and the same on the CPU copies: the
+    largest relative Frobenius error of a leaf, and whether every leaf is
+    equal in bits."""
+    from lpi_tpu_torch.core.ema import update_ema
+
+    cpu = update_ema({k: v.cpu() for k, v in ema.items()},
+                     {k: v.detach().cpu() for k, v in params.items()})
+    card = {k: v.cpu() for k, v in update_ema(ema, params).items()}
+    worst = max(rel_frob(card[k].double().numpy(), cpu[k].double().numpy()) for k in cpu)
+    return worst, all(torch.equal(card[k], cpu[k]) for k in cpu)
+
+
+def tooling_step_phase(dk, fk, tok, work):
+    """Phase 18a: the port's tooling around phase 5's full-width step
+    (`GroundingConfig()`, b4, 448 px, bf16, "pallas", task 1,
+    `honest_offsets`), 1 + 5 captured steps under deterministic algorithms:
+    `core.profiling.StepTimer` beside the host clock taken as phase 5 takes
+    it; one step inside `core.profiling.trace`, its Chrome trace holding 54
+    / 24 / 54 / 24 window kernels by name; `device_memory_stats` against the
+    allocator; an EMA of every parameter (`core.ema`) updated after each
+    step, one update timed beside its byte bound and held on the card
+    against the CPU; one eager gradient of `_losses` over every pool leaf
+    through `continual.freeze.mask_grads` (row 1 kept, every other row
+    zero) and `count_trainable` against the pools' row-1 scalars; the
+    losses through `core.logging.MetricLogger` and one `log_line`."""
+    from lpi_tpu_torch.bench import deterministic, honest_offsets
+    from lpi_tpu_torch.config import GroundingConfig
+    from lpi_tpu_torch.continual.freeze import count_trainable, mask_grads
+    from lpi_tpu_torch.continual.grounding_learner import GroundingLearner
+    from lpi_tpu_torch.core import profiling
+    from lpi_tpu_torch.core.ema import init_ema, update_ema
+    from lpi_tpu_torch.core.logging import MetricLogger
+    from lpi_tpu_torch.data.grounding import synthetic_grounding_task
+    from lpi_tpu_torch.graphs import WARMUP
+
+    t = time.perf_counter()
+    cfg = GroundingConfig(batch_size=TRAIN_BATCH)
+    learner = GroundingLearner(cfg, generator=torch.Generator().manual_seed(0), device="cuda")
+    honest_offsets(learner.model)
+    batch = next(synthetic_grounding_task(TRAIN_TASK, TRAIN_BATCH, cfg.image_size, tok,
+                                          max_boxes=cfg.max_boxes).batches(TRAIN_BATCH))
+    params = dict(learner.model.named_parameters())
+    ema = init_ema(params)
+    log(f"18a: learner and EMA built in {time.perf_counter() - t:.3f} s")
+    timer, metrics_log, host = profiling.StepTimer(), MetricLogger(), []
+    with deterministic():
+        step = learner.make_step(TRAIN_TASK, steps_per_epoch=TOOLING_STEPS,
+                                 epochs=cfg.epochs_per_task)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(dk, fk)
+        for i in range(1 + TOOLING_STEPS):
+            t = time.perf_counter()
+            if i:
+                timer.start()
+            metrics = step(batch)
+            if i:
+                timer.stop(metrics)  # the card's metrics: it synchronizes
+            else:
+                torch.cuda.synchronize()
+            host.append((time.perf_counter() - t) * 1e3)
+            losses = {k: v.item() for k, v in metrics.items()}
+            if not all(np.isfinite(v) for v in losses.values()):
+                raise AssertionError(f"18a step {i}: {losses}")
+            metrics_log.update(**losses)
+            ema = update_ema(ema, params)
+        launches = launch_counts(dk, fk)
+        if launches != expected_counts(dk, fk, cfg, WARMUP + 1, train=True):
+            raise AssertionError(f"18a: launch counters {launches}")
+        med = statistics.median(host[1:])
+        log(f"18a StepTimer on {card_line()}: p50 {timer.p50 * 1e3:.3f} ms, mean "
+            f"{timer.mean * 1e3:.3f} ms over {TOOLING_STEPS} captured steps after the first; "
+            f"host clock median {med:.3f} ms ({host[0]:.3f} ms the first)")
+        if not timer.p50 * 1e3 >= 0.5 * med:
+            raise AssertionError("18a: StepTimer did not wait for the card")
+        stats = profiling.device_memory_stats("cuda")
+        log(f"18a device_memory_stats: {stats} ({stats['peak_bytes_in_use'] / 2**30:.3f} GiB "
+            f"peak of {stats['bytes_limit'] / 2**30:.3f} GiB)")
+        if not (stats["peak_bytes_in_use"] == torch.cuda.max_memory_allocated()
+                and 0 < stats["bytes_in_use"] <= stats["bytes_limit"]):
+            raise AssertionError(f"18a: device_memory_stats {stats}")
+        logdir = os.path.join(work, "trace")
+        t = time.perf_counter()
+        with profiling.trace(logdir):
+            step(batch)
+            torch.cuda.synchronize()
+        log(f"18a: one step traced and its trace written in {time.perf_counter() - t:.3f} s")
+        got = trace_window_launches(logdir)
+        want = {k: n for k, n in expected_counts(dk, fk, cfg, 1, train=True).items() if n}
+        if got != want:
+            raise AssertionError(f"18a trace: window kernels {got}, want {want}")
+        del step
+    log(metrics_log.log_line(1 + TOOLING_STEPS, 1 + TOOLING_STEPS, prefix="18a "))
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(EMA_REPS):
+        start.record()
+        ema = update_ema(ema, params)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    nbytes = sum(3 * p.numel() * p.element_size() for p in params.values())
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    ema_ms = statistics.median(times)
+    t = time.perf_counter()
+    worst, bits = ema_card_vs_cpu(ema, params)
+    log(f"18a: update_ema card vs CPU in {time.perf_counter() - t:.3f} s")
+    log(f"18a update_ema on {card_line()}: {len(params)} leaves, "
+        f"{sum(p.numel() for p in params.values())} parameters, median {ema_ms:.3f} ms of "
+        f"{EMA_REPS} (all {[round(x, 3) for x in times]}), bound {bound:.3f} ms "
+        f"({nbytes / 1e9:.3f} GB: read e, read p, write e at 3.35 TB/s), "
+        f"{100 * bound / ema_ms:.1f}% of it; card vs CPU largest relative Frobenius "
+        f"{worst:.3e} (bar 1e-6), equal in bits: {bits}")
+    if not worst <= 1e-6:
+        raise AssertionError("18a: update_ema on the card and the CPU disagree")
+    del ema
+
+    pools = learner.pools
+    names = sorted(pools)
+    total, _ = learner._losses(learner.to_device(batch), TRAIN_TASK)
+    grads = dict(zip(names, torch.autograd.grad(total, [pools[n] for n in names])))
+    masked = mask_grads(grads, TRAIN_TASK)
+    others = [i for i in range(cfg.total_tasks) if i != TRAIN_TASK]
+    live = [n for n in names if grads[n][others].any()]
+    for n in names:
+        if not (torch.equal(masked[n][TRAIN_TASK], grads[n][TRAIN_TASK])
+                and not masked[n][others].any()):
+            raise AssertionError(f"18a mask_grads: {n} is not its row {TRAIN_TASK} alone")
+    n_train = count_trainable(params, TRAIN_TASK)
+    want_n = sum(p[TRAIN_TASK].numel() for p in pools.values())
+    log(f"18a mask_grads: {len(names)} pool leaves keep row {TRAIN_TASK} and zero the rest "
+        f"({len(live)} had a gradient in another row: {live}); count_trainable {n_train}, "
+        f"the pools' row-{TRAIN_TASK} scalars {want_n}")
+    if n_train != want_n:
+        raise AssertionError("18a: count_trainable is not the pools' row")
+    del learner, params, pools, grads, masked, total
+    torch.cuda.empty_cache()
+
+
+def flops_phase():
+    """Phase 18b: `core.profiling.compiled_flops` over one eager
+    full-width retrieval step (`RetrievalConfig()`: CLIP ViT-B/16, b64,
+    the LPI pool; after one warm-up step) beside `retrieval_step_flops`,
+    which counts the towers' products: within 5%."""
+    from lpi_tpu_torch.bench import retrieval_inputs
+    from lpi_tpu_torch.config import RetrievalConfig
+    from lpi_tpu_torch.continual.learner import RetrievalLearner
+    from lpi_tpu_torch.core.profiling import compiled_flops
+
+    cfg = RetrievalConfig()
+    learner = RetrievalLearner(cfg, generator=torch.Generator().manual_seed(0), device="cuda")
+    batch = learner.to_device(retrieval_inputs(cfg))
+    step = learner.make_train_step(TRAIN_TASK, steps_per_epoch=100, epochs=cfg.epochs,
+                                   eager=True)
+    step(batch)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    counted = compiled_flops(step, batch)
+    torch.cuda.synchronize()
+    want = retrieval_step_flops(cfg)
+    ratio = counted["flops"] / want
+    log(f"18b compiled_flops of one eager retrieval step (b{cfg.batch_size}): "
+        f"{counted['flops'] / 1e12:.6f} TFLOP in {time.perf_counter() - t:.3f} s, "
+        f"retrieval_step_flops {want / 1e12:.6f} TFLOP, ratio {ratio:.6f} "
+        f"(bar 1 +- {FLOP_RATIO_BAR}); {counted}")
+    if not abs(ratio - 1) <= FLOP_RATIO_BAR:
+        raise AssertionError(f"18b: the FLOP count is {ratio:.4f} of the products'")
+    del learner, batch, step
+    torch.cuda.empty_cache()
+
+
+def stub_gradio():
+    """A `gradio` module whose `Interface` records its `fn` and whose
+    `launch` returns at once. -> (the module, the recorded dict)."""
+    import types
+
+    gr, recorded = types.ModuleType("gradio"), {}
+
+    class Interface:
+        def __init__(self, fn, **kwargs):
+            recorded["fn"] = fn
+
+        def launch(self, **kwargs):
+            recorded["launch"] = kwargs
+
+    gr.Interface = Interface
+    gr.Textbox = gr.Image = gr.Dropdown = lambda *args, **kwargs: None
+    return gr, recorded
+
+
+def serve_phase(dk, fk):
+    """Phase 18c: `serve` at full width on the card (`GroundingConfig()`, no
+    checkpoint) with a stub `gradio`; the recorded `infer` on a seeded
+    480x640 image with "all" and "R@1", each equal pixel for pixel to
+    `draw_predictions` / `draw_predictions_metric` of the same predictor's
+    `predict`; at the config's thresholds, then at 0 (seeded weights score
+    every box near the prior); the launch counters over the requests (one
+    capture) and one profiled request's window kernels by name (54 / 24)."""
+    import importlib.util
+
+    from lpi_tpu_torch.graphs import WARMUP
+    from lpi_tpu_torch.serve.predictor import draw_predictions, draw_predictions_metric
+
+    log(f"18c: gradio importable on this machine: "
+        f"{importlib.util.find_spec('gradio') is not None}")
+    gr, recorded = stub_gradio()
+    real = sys.modules.get("gradio")
+    sys.modules["gradio"] = gr
+    try:
+        predictor, wall, _ = run_cli("serve", "--port", "7861")
+    finally:
+        if real is None:
+            del sys.modules["gradio"]
+        else:
+            sys.modules["gradio"] = real
+    if recorded.get("launch") != {"server_port": 7861}:
+        raise AssertionError(f"18c: launch got {recorded.get('launch')}")
+    infer, cfg = recorded["fn"], predictor.model.cfg
+    image = np.random.RandomState(0).randint(0, 256, size=(480, 640, 3)).astype(np.uint8)
+    reset_counts(dk, fk)
+    requests = 0
+    for thresholds in ("the config's", "0"):
+        if thresholds == "0":
+            predictor.score_thresh = 0.0
+            predictor.atss_cfg = dataclasses.replace(predictor.atss_cfg, inference_thresh=0.0)
+        views = {view: np.asarray(infer(CLI_CAPTION, image, view)) for view in ("all", "R@1")}
+        result = predictor.predict(image, CLI_CAPTION)
+        requests += 3
+        want = {"all": np.asarray(draw_predictions(image, result)),
+                "R@1": np.asarray(draw_predictions_metric(image, result, metric="R@1")[0])}
+        for view in views:
+            if not np.array_equal(views[view], want[view]):
+                raise AssertionError(f"18c infer {view!r} at thresholds {thresholds}: not the "
+                                     f"drawing of predict")
+        log(f"18c infer at thresholds {thresholds}: {len(result['boxes'])} detections, "
+            f"'all' and 'R@1' equal to the drawings of predict pixel for pixel "
+            f"({views['all'].shape})")
+    launches = launch_counts(dk, fk)
+    if launches != expected_counts(dk, fk, cfg, WARMUP + 1, train=False):
+        raise AssertionError(f"18c: launch counters {launches} over {requests} requests")
+    kernels, _ = _profile(lambda: infer(CLI_CAPTION, image, "all"), "serve request")
+    per_request = check_replay_launches(dk, fk, cfg, kernels, False, "18c serve")
+    log(f"18c: launch counters {launches} over {requests} requests (one capture of "
+        f"{WARMUP + 1} host calls), {per_request} by kernel name a request")
+    del predictor, infer, recorded
+    torch.cuda.empty_cache()
+
+
+def tooling_phase(dk, fk, tok=None):
+    """Phase 18: 18a, 18b and 18c, with 18a's trace in a temporary
+    directory deleted afterwards. `tok`: the grounding tokenizer (built
+    here when None)."""
+    import shutil
+    import tempfile
+
+    if tok is None:
+        from lpi_tpu_torch.config import GroundingConfig
+        from lpi_tpu_torch.data.bert_tokenizer import BertTokenizer
+
+        bert = GroundingConfig().bert
+        tok = BertTokenizer(max_len=bert.max_query_len, vocab_size=bert.vocab_size)
+    work = tempfile.mkdtemp(prefix="chip_smoke_tooling_")
+    try:
+        t = time.perf_counter()
+        tooling_step_phase(dk, fk, tok, work)
+        log(f"phase 18a: {time.perf_counter() - t:.3f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    t = time.perf_counter()
+    flops_phase()
+    log(f"phase 18b: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    serve_phase(dk, fk)
+    log(f"phase 18c: {time.perf_counter() - t:.3f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3680,6 +4025,11 @@ def main() -> int:
     t = time.perf_counter()
     zoo_phase()
     log(f"phase 17: {time.perf_counter() - t:.3f} s")
+
+    # ---- the tooling around the main path: timer, trace, EMA, FLOPs, serve
+    t = time.perf_counter()
+    tooling_phase(dk, fk, tok)
+    log(f"phase 18: {time.perf_counter() - t:.3f} s")
 
     for rec in records.values():
         kinds = rec.pop("bound_kinds")

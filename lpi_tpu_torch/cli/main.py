@@ -12,8 +12,10 @@ sessions, the grounding demo and result post-processing.
         --checkpoint-dir checkpoints_grounding
     python -m lpi_tpu_torch.cli.main predict image.png --classes dog,bench \\
         --knowledge-file knowledge.json
+    python -m lpi_tpu_torch.cli.main serve --checkpoint-dir checkpoints_grounding --port 7860
     python -m lpi_tpu_torch.cli.main report res/<timestamp>.json --metric i2t
     python -m lpi_tpu_torch.cli.main eval-detection preds.json --gt gt.json --protocol lvis
+    python -m lpi_tpu_torch.cli.main fetch-weights clip-vit-b-16
 
 Every command that runs a model runs it on the card; `--platform cpu` runs
 it on the CPU (the kernels' plain versions), and without a card and without
@@ -43,9 +45,12 @@ image directory, each found by `try_to_find` in the working directory,
 `$DATASET`, then ./DATASET, ./OUTPUT, ./data and ./MODEL, and runs as with
 `--ann/--image-root`. `eval-detection` scores a predictions json against a
 ground-truth json with the COCO, LVIS, VOC or Flickr30k protocol
-(`eval/{coco_ap,lvis,voc,flickr}.py`, host numpy). The commands whose
-modules are not ported yet (`serve`, `fetch-weights`) stay in the parser
-and exit non-zero, naming their ROADMAP item.
+(`eval/{coco_ap,lvis,voc,flickr}.py`, host numpy). `serve` builds the
+predictor as `predict` does and hands it to the gradio demo
+(`serve.predictor.launch_webui`); without `gradio` installed it fails with
+the JAX package's error. `fetch-weights` downloads, verifies and converts a
+registry entry (`core/fetch.py`; `--list` prints the registry), on the
+host.
 """
 
 from __future__ import annotations
@@ -57,10 +62,6 @@ import os
 import numpy as np
 import torch
 
-NOT_PORTED = {
-    "serve": "serve (the gradio webui) is not ported yet (ROADMAP §A.3)",
-    "fetch-weights": "fetch-weights (core/fetch.py) is not ported yet (ROADMAP §A.5)",
-}
 ONE_PROCESS = ("{command} runs in one process, as in the JAX package, which builds no mesh "
                "for it; under torchrun only `train` takes more than one rank "
                "(WORLD_SIZE={world})")
@@ -119,7 +120,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="GLIPKNOW knowledge json expanding --classes into "
                    "knowledge-augmented captions (the config's knowledge settings)")
 
-    s = sub.add_parser("serve", help="launch the gradio grounding webui (not ported yet)")
+    s = sub.add_parser("serve", help="launch the gradio grounding webui")
     s.add_argument("--config", default=None)
     s.add_argument("--checkpoint-dir", default=None)
     s.add_argument("--bert-vocab", default=None)
@@ -161,8 +162,7 @@ def build_parser() -> argparse.ArgumentParser:
     ed.add_argument("--merge-boxes", action="store_true",
                     help="flickr: merge each phrase's GT boxes into one")
 
-    fw = sub.add_parser("fetch-weights", help="download and convert pretrained weights "
-                                              "(not ported yet)")
+    fw = sub.add_parser("fetch-weights", help="download and convert pretrained weights")
     fw.add_argument("name", nargs="?", default=None)
     fw.add_argument("--root", default=None)
     fw.add_argument("--no-convert", action="store_true")
@@ -402,6 +402,26 @@ def cmd_predict(args) -> dict:
     return result
 
 
+def cmd_serve(args):
+    """The gradio grounding demo on a predictor built as `predict` builds
+    it (the config's grounding model, restored from `--checkpoint-dir` when
+    given). -> the predictor, after the demo's `launch` returns."""
+    from lpi_tpu_torch.config import load_config
+    from lpi_tpu_torch.continual.grounding_learner import GroundingLearner
+    from lpi_tpu_torch.core.checkpoint import SessionCheckpointer
+    from lpi_tpu_torch.serve.predictor import GroundingPredictor, launch_webui
+
+    gcfg = load_config(args.config).grounding
+    learner = GroundingLearner(gcfg, device=args.device)
+    if args.checkpoint_dir:
+        learner.restore(SessionCheckpointer(args.checkpoint_dir))
+    predictor = GroundingPredictor(learner.model, learner.keys, _bert_tokenizer(args, gcfg),
+                                   image_size=gcfg.image_size, atss_cfg=gcfg.atss,
+                                   device=args.device)
+    launch_webui(predictor, port=args.port)
+    return predictor
+
+
 def cmd_eval(args) -> dict:
     """Retrieval evaluation of one saved session (the latest by default).
     -> the evaluation."""
@@ -490,6 +510,25 @@ def cmd_report(args) -> dict:
     return res
 
 
+def cmd_fetch_weights(args) -> dict:
+    """List the registry, or download, verify and convert one entry."""
+    from lpi_tpu_torch.core import fetch
+
+    if args.list_entries or args.name is None:
+        for name, spec in sorted(fetch.WEIGHTS.items()):
+            verified = "sha256" if spec["sha256"] else "unverified"
+            print(f"{name:16s} {verified:10s} {spec['url']}")
+        if args.name is None:
+            return {"available": sorted(fetch.WEIGHTS)}
+    out = fetch.fetch_weights(args.name, root=args.root or fetch.DEFAULT_ROOT,
+                              convert=not args.no_convert)
+    print(f"checkpoint: {out['checkpoint']}")
+    print(f"sha256:     {out['sha256']}")
+    if out["converted"]:
+        print(f"converted:  {out['converted']}")
+    return out
+
+
 def cmd_eval_detection(args) -> dict:
     """Score detection or grounding predictions with the reference's
     protocols: COCO mAP (`eval/coco_ap.py`), federated LVIS AP with its
@@ -568,8 +607,10 @@ def cmd_eval_detection(args) -> dict:
 
 
 COMMANDS = {"train": cmd_train, "train-grounding": cmd_train_grounding,
-            "predict": cmd_predict, "eval": cmd_eval, "eval-all": cmd_eval_all}
-HOST_COMMANDS = {"report": cmd_report, "eval-detection": cmd_eval_detection}  # no model
+            "predict": cmd_predict, "serve": cmd_serve, "eval": cmd_eval,
+            "eval-all": cmd_eval_all}
+HOST_COMMANDS = {"report": cmd_report, "eval-detection": cmd_eval_detection,  # no model
+                 "fetch-weights": cmd_fetch_weights}
 
 
 def _start_group(args):
@@ -591,8 +632,6 @@ def _start_group(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.command in NOT_PORTED:
-        raise SystemExit(NOT_PORTED[args.command])
     if args.command in HOST_COMMANDS:
         return HOST_COMMANDS[args.command](args)
     if "WORLD_SIZE" in os.environ:

@@ -3,7 +3,9 @@
 task pools that a session trains and the frozen rest, by name substring;
 optax's `clip_by_global_norm` and `adamw` written out (both learners'
 full-parameter pretrain, the grounding sessions); the per-epoch cosine
-learning rates; the in-place checkpoint load of both learners' `restore`."""
+learning rates, as a list (`epoch_lrs`, `staged_lrs`) and as a `step ->
+lr` function (`epoch_cosine`); the in-place checkpoint load of both
+learners' `restore`."""
 
 from __future__ import annotations
 
@@ -166,3 +168,18 @@ def staged_lrs(base_lr: float, epochs: int, device) -> torch.Tensor:
     """`epoch_lrs` as one fp32 tensor on `device`, staged once per session:
     a step copies its epoch's entry into the lr it reads."""
     return torch.tensor(epoch_lrs(base_lr, epochs), dtype=torch.float32, device=device)
+
+
+def epoch_cosine(base_lr: float, epochs: int, steps_per_epoch: int):
+    """torch CosineAnnealingLR stepped once per epoch, as a `step -> lr`
+    function of a Python int or a 0-d integer tensor: the lr of step s is
+    `epoch_lrs(base_lr, epochs)[s // steps_per_epoch]`, equal in bits (the
+    cosine in fp64, rounded to fp32), a 0-d fp32 tensor on the step's
+    device."""
+
+    def schedule(step) -> torch.Tensor:
+        epoch = torch.as_tensor(step) // max(steps_per_epoch, 1)
+        lr = base_lr * 0.5 * (1.0 + torch.cos(math.pi * epoch.double() / epochs))
+        return lr.float()
+
+    return schedule

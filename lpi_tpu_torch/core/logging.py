@@ -1,8 +1,11 @@
-"""Metric logging: a jsonl stream, TensorBoard scalars, result files (host
-copy of the parts of `lpi_tpu/core/logging.py` that the command line uses).
+"""Metric logging: smoothed windows, ETA lines, a jsonl stream, TensorBoard
+scalars, result files (host copy of `lpi_tpu/core/logging.py`).
 
-`MetricLogger` writes a `metrics.jsonl` stream and, given a directory,
-TensorBoard scalars through `torch.utils.tensorboard`. `save_results_json`
+`SmoothedValue` keeps a window of the last 20 values (median, average) and
+the running mean of all of them. `MetricLogger` keeps one per metric
+(`meters`), prints an ETA line (`log_line`), writes a `metrics.jsonl`
+stream and, given a directory, TensorBoard scalars through
+`torch.utils.tensorboard`. `save_results_json`
 writes the continual run's result file in the JAX package's schema
 ({session: {dataset: {'i2t' / 't2i': {task: [P@1, P@5, P@10]}}}} for
 retrieval), so that `report` reads the files of either package.
@@ -10,6 +13,7 @@ retrieval), so that `report` reads the files of either package.
 
 from __future__ import annotations
 
+import collections
 import json
 import logging
 import os
@@ -35,16 +39,49 @@ def setup_logging(output_dir: Optional[str] = None, level=logging.INFO) -> loggi
     return logger
 
 
-class MetricLogger:
-    """Metrics as a jsonl stream; with `tensorboard_dir`, every update also
-    lands as TensorBoard scalars (left out when TensorBoard is not
-    installed: the jsonl stream still works)."""
+class SmoothedValue:
+    """Windowed median and average, and the global average
+    (the reference's `utils/metric_logger.py` SmoothedValue)."""
 
-    def __init__(self, jsonl_path: Optional[str] = None,
+    def __init__(self, window_size: int = 20):
+        self.deque = collections.deque(maxlen=window_size)
+        self.total = 0.0
+        self.count = 0
+
+    def update(self, value: float):
+        value = float(value)
+        self.deque.append(value)
+        self.total += value
+        self.count += 1
+
+    @property
+    def median(self) -> float:
+        d = sorted(self.deque)
+        return d[len(d) // 2] if d else 0.0
+
+    @property
+    def avg(self) -> float:
+        return sum(self.deque) / len(self.deque) if self.deque else 0.0
+
+    @property
+    def global_avg(self) -> float:
+        return self.total / max(self.count, 1)
+
+
+class MetricLogger:
+    """Step metrics: a `SmoothedValue` per metric, an ETA line, a jsonl
+    stream; with `tensorboard_dir`, every update also lands as TensorBoard
+    scalars (left out when TensorBoard is not installed: the jsonl stream
+    still works)."""
+
+    def __init__(self, jsonl_path: Optional[str] = None, delimiter: str = "  ",
                  tensorboard_dir: Optional[str] = None):
+        self.meters = collections.defaultdict(SmoothedValue)
+        self.delimiter = delimiter
         if jsonl_path and os.path.dirname(jsonl_path):
             os.makedirs(os.path.dirname(jsonl_path), exist_ok=True)
         self._jsonl = open(jsonl_path, "a") if jsonl_path else None
+        self._start = time.time()
         self._tb = None
         self._tb_step = 0
         if tensorboard_dir:
@@ -56,6 +93,8 @@ class MetricLogger:
                 self._tb = None
 
     def update(self, **kwargs):
+        for k, v in kwargs.items():
+            self.meters[k].update(float(v))
         if self._jsonl is not None:
             rec = {k: float(v) for k, v in kwargs.items()}
             rec["time"] = time.time()
@@ -65,6 +104,18 @@ class MetricLogger:
             self._tb_step += 1
             for k, v in kwargs.items():
                 self._tb.add_scalar(k, float(v), self._tb_step)
+
+    def log_line(self, step: int, total_steps: int, prefix: str = "") -> str:
+        """`<prefix>[step/total]`, the ETA from the time since the logger
+        was made, and each metric's windowed average; logged and
+        returned."""
+        elapsed = time.time() - self._start
+        eta = elapsed / max(step, 1) * (total_steps - step)
+        parts = [f"{prefix}[{step}/{total_steps}]", f"eta {eta:.0f}s"]
+        parts += [f"{k} {m.avg:.4f}" for k, m in self.meters.items()]
+        line = self.delimiter.join(parts)
+        logger.info(line)
+        return line
 
     def close(self):
         if self._jsonl is not None:

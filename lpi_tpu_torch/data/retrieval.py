@@ -6,6 +6,8 @@
 * `RetrievalEvalSet`: the cumulative eval set over sessions 0..current,
   image and text lists with txt2img / img2txt maps and per-item task
   categories.
+* `DEFAULT_TASK_ORDER`: the reference's session -> COCO-supercategory
+  order (`retrieval/utils/data.py:327-343`).
 * Synthetic generators (seeded, the JAX package's arrays exactly):
   `synthetic_session`, `synthetic_correlated_{session,pretrain,eval}` (the
   quality gate's data, whose pixels encode their caption) and
@@ -18,6 +20,10 @@ from dataclasses import dataclass, field
 from typing import Dict, Iterator, List
 
 import numpy as np
+
+# the hardcoded session -> COCO-supercategory order
+DEFAULT_TASK_ORDER = (11, 6, 3, 10, 5, 12, 7, 9, 2, 8, 4, 1)
+
 
 @dataclass
 class RetrievalTrainSet:

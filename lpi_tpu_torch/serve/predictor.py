@@ -16,6 +16,10 @@
   clamp, with a warning above `warn_frac`.
 * `draw_predictions`, `draw_predictions_metric`: PIL overlays, all boxes or
   the top-k above a threshold with score-graded colours.
+* `launch_webui(predictor, port)`: the reference's gradio demo
+  (`webui/index.py`): a caption, an image and a metric view in, the
+  overlay out. `gradio` is imported when it is called, not with this
+  module; without it the call raises.
 
 `predict` marks its phases (prepare, task_id, forward, postprocess) as
 profiler ranges, which `chip_smoke.py` reads; without a profiler each
@@ -341,3 +345,31 @@ def draw_predictions_metric(image: np.ndarray, result: dict, metric: str = "R@1"
             draw.text((x1 + 2, (y1 + y2) / 2), f"{s:.3f}", fill=(255, 255, 255))
     kept = {key: [result[key][i] for i in keep] for key in ("boxes", "scores", "entities")}
     return im, kept
+
+
+def launch_webui(predictor: GroundingPredictor, port: int = 7860):
+    """Serve `predictor` through a gradio `Interface` on `port`: `infer(caption,
+    image, metric)` draws every detection ("all", `draw_predictions`) or the
+    metric view ("R@1", "R@5", "R@10", `draw_predictions_metric`). Blocks
+    in `launch` while the demo serves."""
+    try:
+        import gradio as gr
+    except ImportError as e:
+        raise RuntimeError("gradio is not installed in this environment") from e
+
+    def infer(caption, image, metric):
+        image = np.asarray(image)
+        result = predictor.predict(image, caption)
+        if metric == "all":
+            return draw_predictions(image, result)
+        im, _ = draw_predictions_metric(image, result, metric=metric)
+        return im
+
+    demo = gr.Interface(
+        fn=infer,
+        inputs=[gr.Textbox(label="caption"), gr.Image(label="image"),
+                gr.Dropdown(["all", "R@1", "R@5", "R@10"], value="all", label="metric view")],
+        outputs=gr.Image(label="grounded"),
+        title="LPI-TPU grounding demo",
+    )
+    demo.launch(server_port=port)

@@ -10,9 +10,9 @@ must give exactly what the training run recorded or computed; `report`
 gives the JAX package's `get_res` on the same file. The result files carry
 the JAX command line's schema. `train-grounding --dataset` equals the same
 run by `--ann/--image-root` and refuses a name that is not mdetr-format
-with the JAX package's words. The commands whose modules are not ported
-exit non-zero naming their ROADMAP item; without a card the default
-platform refuses to run.
+with the JAX package's words. `fetch-weights --list` prints the registry
+and `serve` without `gradio` fails with the JAX package's error; without a
+card the default platform refuses to run.
 """
 
 import contextlib
@@ -393,21 +393,29 @@ def test_train_grounding_dataset_names_the_missing_file(tmp_path, monkeypatch):
         _run("train-grounding", "--dataset", "refexp_val")
 
 
-# ---- what is not ported, and the platform -------------------------------------
-@pytest.mark.parametrize("argv,item", [
-    (["serve"], "§A.3"),
-    (["fetch-weights", "--list"], "§A.5"),
-])
-def test_unported_commands_exit_naming_their_roadmap_item(argv, item):
-    with pytest.raises(SystemExit) as e:
-        cli.main(["--platform", "cpu", *argv])
-    assert f"ROADMAP {item}" in str(e.value.code)
+# ---- serve and fetch-weights, and the platform --------------------------------
+@pytest.mark.parametrize("command", ["fetch-weights --list", "serve"])
+def test_serve_and_fetch_weights_run_as_in_the_jax_package(command, config, monkeypatch,
+                                                           capsys):
+    """`fetch-weights --list` returns and prints the registry; `serve`
+    without `gradio` builds its predictor and fails with the JAX package's
+    error."""
+    from lpi_tpu.core.fetch import WEIGHTS
+
+    if command == "serve":
+        monkeypatch.setitem(sys.modules, "gradio", None)  # `import gradio` raises ImportError
+        with pytest.raises(RuntimeError, match="^gradio is not installed in this environment$"):
+            _run("serve", "--config", config)
+        return
+    assert _run(*command.split()) == {"available": sorted(WEIGHTS)}
+    printed = capsys.readouterr().out.splitlines()
+    assert [line.split()[0] for line in printed] == sorted(WEIGHTS)
 
 
 def test_the_module_runs_and_the_card_is_the_default():
-    r = subprocess.run([sys.executable, "-m", "lpi_tpu_torch.cli.main", "fetch-weights"],
+    r = subprocess.run([sys.executable, "-m", "lpi_tpu_torch.cli.main", "fetch-weights", "--list"],
                        cwd=REPO, capture_output=True, text=True, timeout=300)
-    assert r.returncode != 0 and "ROADMAP §A.5" in r.stderr
+    assert r.returncode == 0 and "clip-vit-b-16" in r.stdout
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default platform would run")
     with pytest.raises(SystemExit, match="no CUDA device"):

@@ -1,5 +1,6 @@
-"""The PyTorch port imports neither JAX nor the JAX package, and PyYAML
-only when `data.tsv.TSVDataset.from_yaml` reads a shard descriptor."""
+"""The PyTorch port imports neither JAX nor the JAX package, PyYAML only
+when `data.tsv.TSVDataset.from_yaml` reads a shard descriptor, and gradio
+only when `serve.predictor.launch_webui` is called."""
 
 import os
 import subprocess
@@ -19,7 +20,7 @@ for name in names:
 runpy_ns = {"__name__": "chip_smoke_probe"}
 exec(compile(open("chip_smoke.py").read(), "chip_smoke.py", "exec"), runpy_ns)
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "flax", "lpi_tpu", "yaml"))
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "lpi_tpu", "yaml", "gradio"))
 print(len(names), bad)
 """
 

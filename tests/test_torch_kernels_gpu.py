@@ -1158,3 +1158,38 @@ def test_zoo_backbone_and_head_match_cpu(card):
         results.append([total.reshape(1), torch.cat([p.grad.reshape(-1) for p in h.parameters()])])
     for a, b in zip(*results):
         _zoo_close(a, b)
+
+
+def test_profiling_tools_on_the_card(card, tmp_path):
+    """`core.profiling` on the card: `StepTimer` waits for the card (a
+    timed product ends after it), `device_memory_stats` reads the
+    allocator and the card's total, and `trace` writes a Chrome trace that
+    names the product's device kernel."""
+    import json
+    import os
+
+    from lpi_tpu_torch.core.profiling import StepTimer, device_memory_stats, trace
+
+    a = torch.randn(4096, 4096, device=card)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timer = StepTimer()
+    end = torch.cuda.Event()
+    timer.start()
+    for _ in range(20):
+        b = a @ a
+    end.record()
+    timer.stop(b)
+    assert end.query() and len(timer.times) == 1 and timer.p50 > 0
+    stats = device_memory_stats(card)
+    assert stats == device_memory_stats()
+    assert stats["peak_bytes_in_use"] == torch.cuda.max_memory_allocated() >= 2 * a.nbytes
+    assert 0 < stats["bytes_in_use"] <= stats["bytes_limit"]
+    assert stats["bytes_limit"] == torch.cuda.get_device_properties(card).total_memory
+    assert device_memory_stats("cpu") == {}
+    with trace(str(tmp_path)):
+        (a @ a).sum().item()
+    (name,) = os.listdir(tmp_path)
+    events = json.load(open(tmp_path / name))["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert kernels and any(e.get("name") == "aten::mm" for e in events)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import lpi_tpu_torch.losses as tcl
 from lpi_tpu.core import config as jc
 from lpi_tpu.losses.clip_loss import clip_loss as j_clip_loss
 from lpi_tpu.losses.clip_loss import task_prompt_loss_masked as j_task_loss
@@ -21,7 +22,6 @@ from lpi_tpu.models.glip.grounding import grounding_aux_losses as j_aux
 from lpi_tpu.ops import boxes as jboxes
 from lpi_tpu.ops.focal import token_sigmoid_focal_loss as j_focal
 from lpi_tpu_torch import config as tc
-from lpi_tpu_torch.losses import clip_loss as tcl
 from lpi_tpu_torch.models.glip import atss as tatss
 from lpi_tpu_torch.models.glip.anchors import concat_anchors
 from lpi_tpu_torch.models.glip.grounding import grounding_aux_losses as t_aux
