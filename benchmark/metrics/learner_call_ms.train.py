@@ -1,0 +1,16 @@
+"""`learner_call_ms.train`: the mean of the program's `train.step` span (the
+learner's whole step call: the session's lr and count, the staging, the
+upload and the captured step's launch), the program's own twin of the
+harness's `host_call_ms.train`, over the newest steps that no profiler
+watched (`profiling.span_recent_ms`): the untraced window's last ones, since
+the traced sub-window's profiler makes each graph launch cost the host
+several times more. Nothing where the program keeps no such table."""
+
+
+def read(ctx):
+    if ctx.get("kind") != "train":
+        return None
+    from lpi_tpu_torch.core import profiling
+
+    span_recent_ms = getattr(profiling, "span_recent_ms", None)
+    return span_recent_ms().get("train.step") if span_recent_ms else None

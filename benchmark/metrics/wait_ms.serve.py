@@ -1,0 +1,16 @@
+"""`wait_ms.serve`: the mean of the program's `predict.wait` span (the host
+waiting, at the start of the postprocess, for the card to finish the task-id
+pass and the prompted forward) over the newest requests that no profiler
+watched (`profiling.span_recent_ms`): the untraced window's last ones, since
+the traced sub-window's profiler makes each graph launch cost the host
+several times more. Nothing where the program keeps no such table. On the
+CPU, where the program does not wait, nothing either."""
+
+
+def read(ctx):
+    if ctx.get("kind") != "serve":
+        return None
+    from lpi_tpu_torch.core import profiling
+
+    span_recent_ms = getattr(profiling, "span_recent_ms", None)
+    return span_recent_ms().get("predict.wait") if span_recent_ms else None

@@ -53,6 +53,7 @@ from lpi_tpu_torch.continual.common import (AdamState, adamw_apply,  # noqa: F40
 from lpi_tpu_torch.continual.keys import TaskKeys, exact_fp32, infer_task_ids
 from lpi_tpu_torch.core import mesh as mesh_lib
 from lpi_tpu_torch.core.dist import average_gradients, global_mean
+from lpi_tpu_torch.core.profiling import device_span, span
 from lpi_tpu_torch.data.grounding import GroundingTaskSet
 from lpi_tpu_torch.eval.refexp import RefExpEvaluator
 from lpi_tpu_torch.graphs import Graphed, captures
@@ -82,6 +83,7 @@ class GroundingLearner:
     otherwise; `mesh` makes it one rank of a data- and tensor-parallel run
     (the mesh's device)."""
 
+    @span("learner.init")
     def __init__(self, cfg: GroundingConfig, task_sim_matrix: Optional[np.ndarray] = None,
                  init_params: Optional[Mapping[str, torch.Tensor]] = None,
                  generator: Optional[torch.Generator] = None, device="cuda",
@@ -89,8 +91,9 @@ class GroundingLearner:
         self.cfg = cfg
         self.device = torch.device(device)
         model = GroundedVLModel(cfg)
-        init_parameters(model, generator if generator is not None
-                        else torch.Generator().manual_seed(cfg.seed))
+        with span("learner.seed"):
+            init_parameters(model, generator if generator is not None
+                            else torch.Generator().manual_seed(cfg.seed))
         if init_params is not None:
             unexpected = model.load_state_dict(dict(init_params), strict=False).unexpected_keys
             if unexpected:
@@ -154,19 +157,22 @@ class GroundingLearner:
         one-hot again on the updates. `batch` is on the device; `task_id` is
         an int or a 0-d device tensor, `lr` a float or a 0-d device tensor:
         nothing here reads a value back to the host, so it can be captured."""
-        cfg = self.cfg
-        total, metrics = self._losses(batch, task_id)
-        grads = torch.autograd.grad(total, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        if self.mesh is not None:
-            grads = average_gradients(grads, self.mesh.data_group)
-        masks = None
-        if masked:
-            masks = [(torch.arange(p.shape[0], device=p.device) == task_id).to(p.dtype)
-                     .reshape((-1,) + (1,) * (p.dim() - 1)) for p in params]
-            grads = [g * mk for g, mk in zip(grads, masks)]
-        grads = clip_by_global_norm(grads, cfg.grad_clip)
-        adamw_apply(params, grads, state, lr, cfg.weight_decay, masks)
+        cfg, dev = self.cfg, self.device
+        with device_span("step.forward", dev):
+            total, metrics = self._losses(batch, task_id)
+        with device_span("step.backward", dev):
+            grads = torch.autograd.grad(total, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+            if self.mesh is not None:
+                grads = average_gradients(grads, self.mesh.data_group)
+        with device_span("step.update", dev):
+            masks = None
+            if masked:
+                masks = [(torch.arange(p.shape[0], device=p.device) == task_id).to(p.dtype)
+                         .reshape((-1,) + (1,) * (p.dim() - 1)) for p in params]
+                grads = [g * mk for g, mk in zip(grads, masks)]
+            grads = clip_by_global_norm(grads, cfg.grad_clip)
+            adamw_apply(params, grads, state, lr, cfg.weight_decay, masks)
         return {"total": total.detach(), **{k: v.detach() for k, v in metrics.items()}}
 
     def _session_state(self) -> _Session:
@@ -203,19 +209,20 @@ class GroundingLearner:
             return self._step(b, sess.task_id, sess.lr, sess.state, params)
 
         def step(batch):
-            epoch = next(count) // max(steps_per_epoch, 1)
-            sess.lr.copy_(lrs[min(epoch, epochs)])
-            sess.state.advance()
-            batch = mesh_lib.shard_batch(self.mesh, batch)
-            if not capture:
-                return run(self.to_device(batch))
-            key = tuple((k, tuple(np.shape(batch[k]))) for k in sorted(_BATCH_DTYPES)
-                        if k in batch)
-            if key not in self._graphs:
-                self._graphs[key] = Graphed(
-                    run, self.to_device(batch),
-                    state=[*params, *sess.state.mu, *sess.state.nu])
-            return self._graphs[key](batch)
+            with span("train.step"):
+                epoch = next(count) // max(steps_per_epoch, 1)
+                sess.lr.copy_(lrs[min(epoch, epochs)])
+                sess.state.advance()
+                batch = mesh_lib.shard_batch(self.mesh, batch)
+                if not capture:
+                    return run(self.to_device(batch))
+                key = tuple((k, tuple(np.shape(batch[k]))) for k in sorted(_BATCH_DTYPES)
+                            if k in batch)
+                if key not in self._graphs:
+                    self._graphs[key] = Graphed(
+                        run, self.to_device(batch),
+                        state=[*params, *sess.state.mu, *sess.state.nu], name="train")
+                return self._graphs[key](batch)
 
         return step
 

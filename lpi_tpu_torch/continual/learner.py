@@ -69,6 +69,7 @@ from lpi_tpu_torch.continual.keys import TaskKeys, exact_fp32, infer_task_ids
 from lpi_tpu_torch.continual.mid import task_relation
 from lpi_tpu_torch.core import mesh as mesh_lib
 from lpi_tpu_torch.core.dist import average_gradients
+from lpi_tpu_torch.core.profiling import device_span, span
 from lpi_tpu_torch.data.retrieval import RetrievalEvalSet, RetrievalTrainSet
 from lpi_tpu_torch.eval.retrieval import device_ranks, itm_eval
 from lpi_tpu_torch.graphs import Graphed, captures
@@ -94,6 +95,7 @@ class RetrievalLearner:
     card unless asked otherwise; `mesh` makes it one rank of a
     data- and tensor-parallel run (the mesh's device)."""
 
+    @span("learner.init")
     def __init__(self, cfg: RetrievalConfig, task_sim_matrix: Optional[np.ndarray] = None,
                  init_params: Optional[Mapping[str, torch.Tensor]] = None,
                  generator: Optional[torch.Generator] = None, device="cuda",
@@ -101,8 +103,9 @@ class RetrievalLearner:
         self.cfg = cfg
         self.device = torch.device(device)
         model = SliNet(cfg)
-        init_parameters(model, generator if generator is not None
-                        else torch.Generator().manual_seed(cfg.seed))
+        with span("learner.seed"):
+            init_parameters(model, generator if generator is not None
+                            else torch.Generator().manual_seed(cfg.seed))
         if init_params is not None:
             unexpected = model.load_state_dict(dict(init_params), strict=False).unexpected_keys
             if unexpected:
@@ -168,15 +171,17 @@ class RetrievalLearner:
         """One masked step in place on the pools and `trace` (the momentum).
         -> metrics, device tensors. Nothing reads a value back to the host,
         so it can be captured."""
-        cfg = self.cfg
+        cfg, dev = self.cfg, self.device
         params = list(self.pools.values())
-        total, losses = self._losses(batch, task_id)
-        # zero-shot CLIP's loss reads no pool leaf: no gradient at all
-        grads = (torch.autograd.grad(total, params, allow_unused=True) if total.requires_grad
-                 else [None] * len(params))
-        if self.mesh is not None:
-            grads = average_gradients(grads, self.mesh.data_group)
-        with torch.no_grad():
+        with device_span("step.forward", dev):
+            total, losses = self._losses(batch, task_id)
+        with device_span("step.backward", dev):
+            # zero-shot CLIP's loss reads no pool leaf: no gradient at all
+            grads = (torch.autograd.grad(total, params, allow_unused=True)
+                     if total.requires_grad else [None] * len(params))
+            if self.mesh is not None:
+                grads = average_gradients(grads, self.mesh.data_group)
+        with device_span("step.update", dev), torch.no_grad():
             for p, g, mask, tr in zip(params, grads, self._masks(task_id), trace):
                 g = torch.zeros_like(p) if g is None else g * mask
                 tr.copy_((g + cfg.weight_decay * p) + cfg.momentum * tr)
@@ -217,16 +222,18 @@ class RetrievalLearner:
             return self._sgd_step(b, sess.task_id, sess.lr, sess.trace)
 
         def step(batch):
-            epoch = next(count) // max(steps_per_epoch, 1)
-            sess.lr.copy_(lrs[min(epoch, epochs)])
-            batch = mesh_lib.shard_batch(self.mesh, batch)
-            if not capture:
-                return run(self.to_device(batch))
-            key = tuple(tuple(np.shape(batch[k])) for k in ("images", "token_ids"))
-            if key not in self._graphs:
-                self._graphs[key] = Graphed(run, self.to_device(batch),
-                                            state=[*self.pools.values(), *sess.trace])
-            return self._graphs[key](batch)
+            with span("train.step"):
+                epoch = next(count) // max(steps_per_epoch, 1)
+                sess.lr.copy_(lrs[min(epoch, epochs)])
+                batch = mesh_lib.shard_batch(self.mesh, batch)
+                if not capture:
+                    return run(self.to_device(batch))
+                key = tuple(tuple(np.shape(batch[k])) for k in ("images", "token_ids"))
+                if key not in self._graphs:
+                    self._graphs[key] = Graphed(run, self.to_device(batch),
+                                                state=[*self.pools.values(), *sess.trace],
+                                                name="train")
+                return self._graphs[key](batch)
 
         return step
 

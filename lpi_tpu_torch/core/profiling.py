@@ -11,17 +11,58 @@ FLOP counter).
 * `device_memory_stats`: the caching allocator's bytes in use and peak, and
   the card's total memory;
 * `compiled_flops`: the FLOPs of one call, from
-  `torch.utils.flop_counter.FlopCounterMode`.
+  `torch.utils.flop_counter.FlopCounterMode`;
+* `span(name)`: a named stretch of host time, always on. It is a
+  `record_function` range, so a `torch.profiler` run (`trace`, the
+  benchmark's traced sub-window) places it on the clock of the card's
+  kernels and copies; its seconds and count also add up in an in-memory
+  table, `span_totals()`, which the set-up (no profiler running) is read
+  from. A profiler makes the host's work around a graph's launch cost
+  several times more (CUPTI's tracing), so `span_recent_ms()` keeps apart
+  the newest `RECENT` durations of each name that no profiler watched: the
+  host's time as it runs untraced;
+* `device_span(name, device)`: a named stretch of the card's stream
+  between two timing events. Inside a CUDA graph's capture the events
+  become nodes of the graph, which every replay records again, so the
+  span measures the captured step's parts, where a `record_function`
+  entered at capture is never replayed. `device_span_ms()` reads the
+  newest pair of each name, without waiting.
+
+The spans the port opens, and what reads them:
+
+* `learner.init` (a learner's construction) and, inside it,
+  `learner.seed` (the seeded initial parameters, on the CPU);
+* `train.step` (a session step's call) and, inside `graphs.Graphed`,
+  `graph.stage` (inputs made pinned tensors of the static inputs'
+  dtypes), `graph.upload` (the copies to the card), `graph.replay` (the
+  graph's launch), and at a capture `graph.warmup` and `graph.capture`;
+* `predict.prepare`, `predict.text`, `predict.upload`, `predict.task_id`,
+  `predict.forward` and `predict.postprocess` (a request's phases, in
+  order); inside the last, `predict.wait` (the host waiting for the card)
+  and `nms.greedy_scan` (the host's NMS scan);
+* device spans: `graph.<name>` (a captured call, whole), and in the train
+  steps `step.forward` (forward and losses), `step.backward` (the
+  gradients) and `step.update` (masks, clip, optimizer).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import threading
 import time
-from typing import Callable, Mapping, Optional
+from typing import Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
+
+_LOCK = threading.Lock()
+RECENT = 16  # durations of each span kept for `span_recent_ms`
+_SPAN_TOTALS: Dict[str, list] = {}  # name -> [seconds, count], over the process
+_SPAN_RECENT: Dict[str, collections.deque] = {}  # name -> the newest unwatched seconds
+_DEVICE_SPANS: Dict[str, tuple] = {}  # name -> the newest (start, end) events recorded
+_CAPTURED: Dict[str, tuple] = {}  # pairs recorded into a graph being captured
 
 
 @contextlib.contextmanager
@@ -36,6 +77,90 @@ def trace(logdir: str):
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
         yield prof
+
+
+@contextlib.contextmanager
+def span(name: str):
+    """A named stretch of host time: a `record_function` range for any
+    profiler running, and its seconds and count added to `span_totals()`;
+    where no profiler was running at its start, its seconds also go to
+    `span_recent_ms()`. Spans nest; each counts its own whole time."""
+    with record_function(name):
+        watched = torch.autograd._profiler_enabled()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            with _LOCK:
+                total = _SPAN_TOTALS.setdefault(name, [0.0, 0])
+                total[0] += dt
+                total[1] += 1
+                if not watched:
+                    recent = _SPAN_RECENT.get(name)
+                    if recent is None:
+                        recent = _SPAN_RECENT[name] = collections.deque(maxlen=RECENT)
+                    recent.append(dt)
+
+
+def span_totals() -> Dict[str, Tuple[float, int]]:
+    """{name: (seconds, count)} over every span closed in this process."""
+    with _LOCK:
+        return {k: (v[0], v[1]) for k, v in _SPAN_TOTALS.items()}
+
+
+def span_recent_ms() -> Dict[str, float]:
+    """{name: ms}, the mean of the newest `RECENT` spans of each name that
+    no profiler watched (fewer where fewer have closed)."""
+    with _LOCK:
+        return {k: 1e3 * sum(v) / len(v) for k, v in _SPAN_RECENT.items()}
+
+
+@contextlib.contextmanager
+def device_span(name: str, device):
+    """Timing events on the current stream of a CUDA `device` around the
+    block; nothing on the CPU. Recorded eagerly, the pair is the newest of
+    its name at once; recorded during a capture, it waits in
+    `take_captured()` for the graph's owner, which hands it to
+    `replayed()` at each replay."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    start = torch.cuda.Event(enable_timing=True, external=True)
+    end = torch.cuda.Event(enable_timing=True, external=True)
+    start.record()
+    yield  # a block that raises keeps no pair (and records nothing more into a failing capture)
+    end.record()
+    table = _CAPTURED if torch.cuda.is_current_stream_capturing() else _DEVICE_SPANS
+    with _LOCK:
+        table[name] = (start, end)
+
+
+def take_captured() -> Dict[str, tuple]:
+    """The device spans recorded into the capture that just ended (a graph
+    has not recorded them yet: their times cannot be read before its first
+    replay)."""
+    with _LOCK:
+        out = dict(_CAPTURED)
+        _CAPTURED.clear()
+    return out
+
+
+def replayed(pairs: Mapping[str, tuple]) -> None:
+    """Make a graph's captured pairs, which its replay just recorded, the
+    newest of their names."""
+    if pairs:
+        with _LOCK:
+            _DEVICE_SPANS.update(pairs)
+
+
+def device_span_ms() -> Dict[str, float]:
+    """{name: ms} of the newest pair of each name whose end the card has
+    reached; never waits."""
+    with _LOCK:
+        pairs = dict(_DEVICE_SPANS)
+    return {name: start.elapsed_time(end) for name, (start, end) in pairs.items()
+            if end.query()}
 
 
 def _on_card(value) -> bool:

@@ -18,8 +18,8 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from lpi_tpu_torch.core.profiling import span
 from lpi_tpu_torch.ops.boxes import box_iou
 
 
@@ -45,8 +45,9 @@ def _keep(boxes: torch.Tensor, scores: torch.Tensor, labels: Optional[torch.Tens
         iou = iou * (labels[order][:, None] == labels[order][None, :])
     suppress = iou > iou_threshold
     valid = torch.isfinite(scores[order])
-    with record_function("nms.greedy_scan"):
-        keep_sorted = greedy_scan(suppress.cpu().numpy(), valid.cpu().numpy())
+    suppress, valid_host = suppress.cpu().numpy(), valid.cpu().numpy()
+    with span("nms.greedy_scan"):  # the host scan alone, after the reads back
+        keep_sorted = greedy_scan(suppress, valid_host)
     keep = torch.zeros_like(valid)
     keep[order] = torch.from_numpy(keep_sorted).to(valid.device)
     return keep

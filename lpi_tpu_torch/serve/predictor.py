@@ -21,9 +21,19 @@
   overlay out. `gradio` is imported when it is called, not with this
   module; without it the call raises.
 
-`predict` marks its phases (prepare, task_id, forward, postprocess) as
-profiler ranges, which `chip_smoke.py` reads; without a profiler each
-costs microseconds against a request of about 100 ms.
+`predict` runs its phases in order, each a `core.profiling.span`:
+`predict.prepare` (the image's resize and normalisation on the host; read
+by the benchmark's `prepare_ms.serve`), `predict.text` (NER or the custom
+entity's spans, the tokenizer, the positive map; `text_ms.serve`),
+`predict.upload` (the request's three arrays to the device),
+`predict.task_id` and `predict.forward` (the two passes' launches),
+`predict.postprocess` (`postprocess_ms.serve`), which opens with
+`predict.wait`, the host's wait for the card to finish both passes
+(`wait_ms.serve`; on the card only), and holds the decode, the host NMS
+scan (`nms.greedy_scan`) and the copies back. The forward's graph records
+the device span `graph.forward` (`forward_device_ms.serve`).
+`predict_classes` runs the same phases but the task id. Without a
+profiler a span costs microseconds against a request of about 45 ms.
 
 On the card the task-id pass (`extract_features` + `infer_task_ids`) and
 the prompted forward (`forward_tasks`) are each captured once as a CUDA
@@ -44,9 +54,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from lpi_tpu_torch.continual.keys import TaskKeys, exact_fp32, infer_task_ids
+from lpi_tpu_torch.core.profiling import span
 from lpi_tpu_torch.data.bert_tokenizer import BertTokenizer, positive_map_from_spans
 from lpi_tpu_torch.data.knowledge import construct_knowledge_captions
 from lpi_tpu_torch.data.transforms import normalize_bgr255, resize_distort
@@ -160,7 +170,7 @@ class GroundingPredictor:
             self._graph_keys = self.keys
         key = (name,) + tuple(tuple(v.shape) for v in inputs.values())
         if key not in self._graphs:
-            self._graphs[key] = Graphed(fn, inputs)
+            self._graphs[key] = Graphed(fn, inputs, name=name)
         return self._graphs[key](inputs)
 
     def _prepare_image(self, image: np.ndarray):
@@ -185,9 +195,22 @@ class GroundingPredictor:
         return normalize_bgr255(resized)[None], (self.image_size / W0,
                                                  self.image_size / H0)
 
+    def _upload(self, canvas: np.ndarray, ids: np.ndarray,
+                mask: np.ndarray) -> Dict[str, torch.Tensor]:
+        """The request's image, token ids and attention mask on the device."""
+        dev = self.device
+        return {"images": torch.from_numpy(canvas).to(dev),
+                "input_ids": torch.from_numpy(ids).long().to(dev),
+                "attention_mask": torch.from_numpy(mask).to(dev)}
+
     def _postprocess(self, flat: Dict[str, torch.Tensor], label_map: np.ndarray) -> dict:
         """ATSS postprocess of the first image's head outputs under
-        `label_map` [entities, T]: host numpy arrays."""
+        `label_map` [entities, T]: host numpy arrays. On the card it first
+        waits for the passes already launched (`predict.wait`), the wait
+        that the label map's copy would otherwise make."""
+        if self.device.type == "cuda":
+            with span("predict.wait"):
+                torch.cuda.current_stream(self.device).synchronize()
         kw = {}
         if self.atss_cfg is not None:
             n = flat["anchors"].shape[0]
@@ -247,58 +270,56 @@ class GroundingPredictor:
         encoded once as parallel language inputs; each class slot maps to
         itself. -> dict(boxes [K,4] original coords, scores [K], entities
         [K] class names)."""
-        caps = list(construct_knowledge_captions(
-            class_names, knowledge, knowledge_type=knowledge_type, gpt3_num=gpt3_num,
-            wiki_and_gpt3=wiki_and_gpt3)) + [""]
-        ids, mask, _ = self.tokenizer(caps)
-        with record_function("predict.prepare"):
+        with span("predict.prepare"):
             canvas, scale = self._prepare_image(image)
-        dev = self.device
-        b = {"images": torch.from_numpy(canvas).to(dev),
-             "input_ids": torch.from_numpy(ids).long().to(dev),
-             "attention_mask": torch.from_numpy(mask).to(dev)}
+        with span("predict.text"):
+            caps = list(construct_knowledge_captions(
+                class_names, knowledge, knowledge_type=knowledge_type, gpt3_num=gpt3_num,
+                wiki_and_gpt3=wiki_and_gpt3)) + [""]
+            ids, mask, _ = self.tokenizer(caps)
+        with span("predict.upload"):
+            b = self._upload(canvas, ids, mask)
         n = len(class_names)
         with exact_fp32():
-            with record_function("predict.forward"):
+            with span("predict.forward"):
                 flat = self._run(f"knowledge_{agg_type}", self._knowledge(agg_type), b)
-            with record_function("predict.postprocess"):
+            with span("predict.postprocess"):
                 out = self._postprocess(flat, np.eye(n, n + 1, dtype=np.float32))
-        return self._detections(out, scale, class_names)
+                return self._detections(out, scale, class_names)
 
     @torch.no_grad()
     def predict(self, image: np.ndarray, caption: str,
                 custom_entity: Optional[str] = None) -> dict:
         """-> dict(boxes [K,4] original coords, scores [K], entities [K],
         task_id)."""
-        with record_function("predict.prepare"):
+        with span("predict.prepare"):
             canvas, (sx, sy) = self._prepare_image(image)
-        if custom_entity:
-            spans = [[(m.start(), m.end())
-                      for m in re.finditer(re.escape(custom_entity.lower()),
-                                           caption.lower())]]
-            entities = [custom_entity]
-        else:
-            spans, entities = run_ner(caption)
+        with span("predict.text"):
+            if custom_entity:
+                spans = [[(m.start(), m.end())
+                          for m in re.finditer(re.escape(custom_entity.lower()),
+                                               caption.lower())]]
+                entities = [custom_entity]
+            else:
+                spans, entities = run_ner(caption)
+            if spans:
+                ids, mask, offsets = self.tokenizer([caption])
+                label_map = positive_map_from_spans(spans, offsets[0], ids.shape[1])
         if not spans:
             return {"boxes": np.zeros((0, 4)), "scores": np.zeros(0), "entities": []}
-
-        ids, mask, offsets = self.tokenizer([caption])
-        label_map = positive_map_from_spans(spans, offsets[0], ids.shape[1])
-        dev = self.device
-        b = {"images": torch.from_numpy(canvas).to(dev),
-             "input_ids": torch.from_numpy(ids).long().to(dev),
-             "attention_mask": torch.from_numpy(mask).to(dev)}
+        with span("predict.upload"):
+            b = self._upload(canvas, ids, mask)
         with exact_fp32():
-            with record_function("predict.task_id"):
+            with span("predict.task_id"):
                 if self.keys is not None:
                     sel = self._run("task_id", self._task_ids, {"images": b["images"]})["sel"]
                 else:
-                    sel = torch.zeros((1,), dtype=torch.long, device=dev)
-            with record_function("predict.forward"):
+                    sel = torch.zeros((1,), dtype=torch.long, device=self.device)
+            with span("predict.forward"):
                 flat = self._run("forward", self._forward, {**b, "sel": sel})
-            with record_function("predict.postprocess"):
+            with span("predict.postprocess"):
                 out = self._postprocess(flat, label_map)
-        return {**self._detections(out, (sx, sy), entities), "task_id": int(sel[0])}
+                return {**self._detections(out, (sx, sy), entities), "task_id": int(sel[0])}
 
 
 def draw_predictions(image: np.ndarray, result: dict):

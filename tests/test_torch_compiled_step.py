@@ -302,7 +302,7 @@ def test_graphs_capture_nothing_on_the_cpu(monkeypatch):
     never construct one."""
     assert not graphs.captures("cpu") and graphs.captures("cuda")
     with pytest.raises(ValueError, match="CUDA tensors"):
-        graphs.Graphed(lambda b: b, {"x": torch.zeros(2)})
+        graphs.Graphed(lambda b: b, {"x": torch.zeros(2)}, name="cpu")
 
     def refuse(*args, **kwargs):
         raise AssertionError("a CPU call tried to capture")

@@ -395,7 +395,7 @@ def test_multi_scale_steps_match_jax_with_one_graph_per_shape(pair, monkeypatch)
     made, replays = [], []
 
     class Recorder:
-        def __init__(self, fn, inputs, state=()):
+        def __init__(self, fn, inputs, state=(), name="fn"):
             made.append(tuple(inputs["images"].shape))
             self.fn = fn
 
