@@ -50,6 +50,14 @@ The fused deformable conv (`deform_impl="fused"`) and the quality gate:
        (batch 1 and 4, 256 channels) and of the gate's config (16
        channels, 64 px), with one launch counted per call and two calls of
        each equal bit for bit, and time them beside their bounds;
+   2d. hold the bilinear upsample's forward and backward kernels
+       (`ops/resize_bilinear.py`) against their plain versions on the card
+       at the b16 train step's four levels (28->56, 14->28, 7->14, 4->7,
+       256 channels) and at a request's odd size, fp32 and bf16, with one
+       launch per call and two calls equal bit for bit, and time them
+       beside their byte bound and PyTorch's `upsample_bilinear2d`; phases
+       3 and 5 check their launch counters (24 a forward, 24 a backward)
+       and the replayed call's launches by kernel name;
    3b. drive the fused predictor (bf16, full width) through a few requests
        with its launch counter checked, profile one, and compare the fp32
        fused model with the fp32 "pallas" route on the card;
@@ -334,6 +342,16 @@ PADDED_KERNELS = ("window_accumulate_taps", "window_accumulate_taps_backward",
                   "window_accumulate", "window_accumulate_backward")
 PADDED_CASES = ((TRAIN_BATCH, 56, 56, 256, K, M), (2, 13, 9, 12, 9, 3), (1, 7, 10, 3, 4, 2),
                 (3, 5, 6, 12, 4, 1), (1, 9, 4, 256, 9, 1))
+# the bilinear upsample: (h, w, H, W) of the four upsampled levels of a 448
+# px tower, held at the ground-train-b16 cell's batch and width (the record
+# sums them over six towers), and a request's odd level pair (a 640 x 360
+# image's), batch 1
+RESIZE_LEVELS = ((28, 28, 56, 56), (14, 14, 28, 28), (7, 7, 14, 14), (4, 4, 7, 7))
+RESIZE_ODD = (23, 40, 45, 80)
+RESIZE_BATCH, RESIZE_CHANNELS = 16, 256
+# the upsample's wrappers and their device kernels' names
+RESIZE_KERNELS = {"resize_bilinear_forward": "resize_bilinear_fwd_kernel",
+                  "resize_bilinear_backward": "resize_bilinear_bwd_kernel"}
 
 
 def log(*args):
@@ -598,6 +616,79 @@ def check_fused_kernels(fk, gen, records):
                     bwd["dw_ms"] += n * bdw
 
 
+def check_resize_kernels(gen, records):
+    """Phase 2d: the bilinear upsample's kernels at the b16 train step's four
+    levels and a request's odd size (batch 1), fp32 and bf16 maps: one
+    launch per call and two calls equal bit for bit; the forward held to
+    `resize_bilinear_reference` (`F.interpolate`), the backward to
+    `resize_bilinear_backward_reference` (the gather form) and to autograd
+    through `F.interpolate`, each within 1e-5 x max(1, max |plain|), a bf16
+    result with half a bf16 step more (`_held`; the plain versions take the
+    same values in fp32). Timed beside the byte bound (every element of the
+    input and the output once), the plain versions (eager, host included:
+    the gather form's index tables are made on the host) and PyTorch's
+    `upsample_bilinear2d` forward and backward on the channels-last view.
+    The records sum the b16 step's bf16 launches, four levels in each of six
+    towers."""
+    from lpi_tpu_torch.ops import resize_bilinear as rb
+
+    fwd, bwd = records["resize_bilinear_forward"], records["resize_bilinear_backward"]
+    fwd["library_ms"] = bwd["library_ms"] = 0.0
+    cases = [(RESIZE_BATCH, *lv) for lv in RESIZE_LEVELS] + [(1, *RESIZE_ODD)]
+    for B, h, w, H, W in cases:
+        C = RESIZE_CHANNELS
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(B, h, w, C, device="cuda", generator=gen).to(dtype)
+            ct = torch.randn(B, H, W, C, device="cuda", generator=gen).to(dtype)
+            y = _launched_once(rb.resize_bilinear_forward, x, H, W)
+            dx = _launched_once(rb.resize_bilinear_backward, ct, h, w)
+            if not (torch.equal(y, _launched_once(rb.resize_bilinear_forward, x, H, W))
+                    and torch.equal(dx, _launched_once(rb.resize_bilinear_backward, ct, h, w))):
+                raise AssertionError(f"resize_bilinear {dtype} b{B} {h}x{w}->{H}x{W}: two "
+                                     f"calls differ")
+            bf16 = dtype == torch.bfloat16
+            label = f"{str(dtype)[6:]} b{B} {h}x{w}->{H}x{W}x{C}"
+            x32 = x.float().requires_grad_(True)
+            y32 = rb.resize_bilinear_reference(x32, H, W)
+            (auto,) = torch.autograd.grad(y32, x32, ct.float())
+            errs = (_held(f"resize_bilinear_forward {label}", y, y32.detach(), bf16),
+                    _held(f"resize_bilinear_backward {label}", dx,
+                          rb.resize_bilinear_backward_reference(ct.float(), h, w), bf16),
+                    _held(f"resize_bilinear_backward {label} (autograd)", dx, auto, bf16))
+            if not bf16:
+                fwd["max_abs_err"] = max(fwd["max_abs_err"], errs[0])
+                bwd["max_abs_err"] = max(bwd["max_abs_err"], *errs[1:])
+            xn, ctn = x.permute(0, 3, 1, 2), ct.permute(0, 3, 1, 2)  # channels-last NCHW views
+            nbytes = (x.numel() + ct.numel()) * x.element_size()
+            for rec, fn, plain, library, flops in (
+                    (fwd, lambda: rb.resize_bilinear_forward(x, H, W),
+                     lambda: rb.resize_bilinear_reference(x, H, W),
+                     lambda: torch.ops.aten.upsample_bilinear2d(xn, [H, W], False),
+                     6 * ct.numel()),
+                    (bwd, lambda: rb.resize_bilinear_backward(ct, h, w),
+                     lambda: rb.resize_bilinear_backward_reference(ct, h, w),
+                     lambda: torch.ops.aten.upsample_bilinear2d_backward(
+                         ctn, [H, W], [B, C, h, w], False),
+                     8 * ct.numel())):
+                ms = device_time_ms(fn, inner=10)
+                plain_ms = eager_time_ms(plain, reps=PLAIN_REPS, inner=1)
+                lib_ms = device_time_ms(library, inner=10)
+                bms, kind = bound_ms(nbytes, flops)
+                log(f"kernel {rec['name']} {label}: {ms:.6f} ms, bound {bms:.6f} ms ({kind}; "
+                    f"{100 * bms / ms:.1f}% of it), plain {plain_ms:.6f} ms (eager), "
+                    f"upsample_bilinear2d {lib_ms:.6f} ms; max abs err "
+                    f"{', '.join(f'{e:.3e}' for e in errs)}; two calls equal bit for bit")
+                if bf16 and B == RESIZE_BATCH:
+                    rec["ms"] += TOWERS * ms
+                    rec["plain_ms"] += TOWERS * plain_ms
+                    rec["bound_ms"] += TOWERS * bms
+                    rec["library_ms"] += TOWERS * lib_ms
+                    rec["bound_kinds"].add(kind)
+    log(f"resize_bilinear per b16 step (bf16, {TOWERS} towers x {len(RESIZE_LEVELS)} levels): "
+        f"forward {fwd['ms']:.6f} ms (bound {fwd['bound_ms']:.6f}), backward {bwd['ms']:.6f} "
+        f"ms (bound {bwd['bound_ms']:.6f})")
+
+
 def _profile(run, what):
     """`run()` under torch.profiler: wall time, the device's busy time (the
     sum of its kernels' times), the host ranges and the kernels that take
@@ -750,8 +841,45 @@ def launch_counts(dk, fk) -> dict:
 
 
 def reset_counts(dk, fk) -> None:
+    from lpi_tpu_torch.ops import resize_bilinear as rb
+
     dk.reset_launch_counts()
     fk.reset_launch_counts()
+    rb.reset_launch_counts()
+
+
+def resize_per_call(cfg, train: bool) -> dict:
+    """The upsample's launches in one call of the head (and, when `train`,
+    its backward): one in each tower at every level but the last (24 at 448
+    px: six towers, five levels)."""
+    per = cfg.dyhead.num_convs * (len(cfg.atss.anchor_strides) - 1)
+    return {"resize_bilinear_forward": per, "resize_bilinear_backward": per if train else 0}
+
+
+def check_resize_launches(cfg, calls: int, train: bool, what: str) -> dict:
+    """The upsample's launch counters over `calls` host calls of the head
+    against `resize_per_call`. -> the counters."""
+    from lpi_tpu_torch.ops import resize_bilinear as rb
+
+    got = {name: getattr(rb, name).launches for name in RESIZE_KERNELS}
+    want = {name: n * calls for name, n in resize_per_call(cfg, train).items()}
+    log(f"{what}: upsample launch counters {got} over {calls} host calls")
+    if got != want:
+        raise AssertionError(f"{what}: upsample launches {got}, want {want}")
+    return got
+
+
+def check_resize_replay(cfg, kernels, train: bool, what: str) -> dict:
+    """One profiled call's upsample launches by kernel name against
+    `resize_per_call` (a replay makes no host call, so the counters cannot
+    see it). -> the launches by wrapper."""
+    got = {name: sum(e.count for e in kernels if kernel in e.key)
+           for name, kernel in RESIZE_KERNELS.items()}
+    log(f"{what}: upsample launches by kernel name in the profiled call {got}")
+    if got != resize_per_call(cfg, train):
+        raise AssertionError(f"{what}: upsample launches by kernel name {got}, want "
+                             f"{resize_per_call(cfg, train)}")
+    return got
 
 
 def expected_counts(dk, fk, cfg, n: int, train: bool) -> dict:
@@ -843,6 +971,7 @@ def train_phase(dk, fk, cfg, tok, records, what=None, keep_model=False, n_steps=
                 f"of the step")
             if launches != want:
                 raise AssertionError(f"want {want} launches, got {launches}")
+            launches.update(check_resize_launches(cfg, calls, True, f"train {label} ({mode})"))
             med = statistics.median(times[1:])
             log(f"train step {label} ({mode}) on {card_line()}: median {med:.3f} ms over "
                 f"{n_steps} steps after the first ({times[0]:.3f} ms), "
@@ -857,6 +986,8 @@ def train_phase(dk, fk, cfg, tok, records, what=None, keep_model=False, n_steps=
                 log_deform_kernels(kernels)
                 per_step = check_replay_launches(dk, fk, cfg, kernels, True,
                                                  f"train {label} ({mode})")
+                per_step.update(check_resize_replay(cfg, kernels, True,
+                                                    f"train {label} ({mode})"))
                 if route == "fused":
                     record_fused_split(kernels, records,
                                        expected_counts(dk, fk, cfg, 1, train=True))
@@ -1099,6 +1230,7 @@ def predict_phase(dk, fk, model, keys, tok, cfg, image, caption, n_req=5, profil
         want = expected_counts(dk, fk, cfg, calls, train=False)
         if launches != want:
             raise AssertionError(f"{what} ({mode}): want {want} launches, got {launches}")
+        launches.update(check_resize_launches(cfg, calls, False, f"{what} ({mode})"))
         boxes, scores = result["boxes"], result["scores"]
         names_ok = (0 <= result["task_id"] < cfg.total_tasks if classes is None
                     else set(result["entities"]) <= set(classes[0]))
@@ -1120,6 +1252,7 @@ def predict_phase(dk, fk, model, keys, tok, cfg, image, caption, n_req=5, profil
             log_deform_kernels(kernels)
             per_request = check_replay_launches(dk, fk, cfg, kernels, False,
                                                 f"{what} ({mode})")
+            per_request.update(check_resize_replay(cfg, kernels, False, f"{what} ({mode})"))
         results[mode] = result
         if mode == "eager":
             eager_launches = launches
@@ -3898,6 +4031,9 @@ def main() -> int:
     window = "lpi_tpu/ops/deform_window_kernel.py"
     fused = "lpi_tpu/ops/fused_deform_kernel.py"
     fused_src = "lpi_tpu_torch/csrc/fused_deform.cu"
+    # the upsample replaces no Pallas kernel: the JAX package's XLA resize
+    resize = "lpi_tpu/models/glip/vldyhead.py:187 (jax.image.resize, no pallas_call)"
+    resize_src = "lpi_tpu_torch/csrc/resize_bilinear.cu"
     records = {name: _record(name, replaces, *src) for name, replaces, *src in (
         ("window_accumulate_taps_inpad", f"{window}:534"),
         ("window_accumulate_taps_s2", f"{window}:766"),
@@ -3908,7 +4044,9 @@ def main() -> int:
         ("window_accumulate_taps", f"{window}:287"),
         ("window_accumulate_taps_backward", f"{window}:341"),
         ("window_accumulate", f"{window}:883"),
-        ("window_accumulate_backward", f"{window}:921"))}
+        ("window_accumulate_backward", f"{window}:921"),
+        ("resize_bilinear_forward", resize, resize_src),
+        ("resize_bilinear_backward", resize, resize_src))}
     records["fused_deform"]["pallas_call"] = f"{fused}:201"
     records["fused_deform_backward"]["pallas_call"] = f"{fused}:238"
     for name, line in zip(PADDED_KERNELS, (320, 357, 897, 926)):
@@ -3918,7 +4056,10 @@ def main() -> int:
     check_backward_kernels(dk, gen, records)
     t = time.perf_counter()
     check_fused_kernels(fk, gen, records)
-    log(f"phase 2c: {time.perf_counter() - t:.3f} s; phases 1-2c: "
+    log(f"phase 2c: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    check_resize_kernels(gen, records)
+    log(f"phase 2d: {time.perf_counter() - t:.3f} s; phases 1-2d: "
         f"{time.perf_counter() - t0:.3f} s")
 
     # ---- the full-width predictor: GLIP-T + LPI at 448 px, bf16 ---------
@@ -3938,7 +4079,8 @@ def main() -> int:
     caption = "a red car parked next to a tall tree and a small dog"
     predictor, launches, per_request = predict_phase(dk, fk, model, keys, tok, cfg, image,
                                                      caption)
-    for name in ("window_accumulate_taps_inpad", "window_accumulate_taps_s2"):
+    for name in ("window_accumulate_taps_inpad", "window_accumulate_taps_s2",
+                 "resize_bilinear_forward"):
         records[name]["predict_launches"] = launches[name]
         records[name]["replay_launches_per_request"] = per_request[name]
     model_fused = GroundedVLModel(cfg_fused)

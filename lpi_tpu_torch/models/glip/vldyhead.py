@@ -46,6 +46,7 @@ from lpi_tpu_torch.models.layers import Conv, Dense, GroupNorm
 from lpi_tpu_torch.ops.clip import clip
 from lpi_tpu_torch.ops.deform_conv import (deform_conv2d, deform_conv2d_exact,
                                            deform_conv2d_fused)
+from lpi_tpu_torch.ops.resize_bilinear import resize_bilinear
 
 DEFORM_IMPLS = ("pallas", "fast", "fast_scan", "fused", "exact")
 
@@ -119,14 +120,6 @@ class DyReLU(nn.Module):
         return torch.maximum(x * a1 + (b1 - 0.5), x * a2 + (b2 - 0.5))
 
 
-def _resize_bilinear(x, H, W):
-    """`jax.image.resize(..., "bilinear")` for upsampling (half-pixel
-    centres, no antialias), NHWC."""
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=(H, W), mode="bilinear",
-                      align_corners=False)
-    return y.permute(0, 2, 3, 1)
-
-
 class DyConv(nn.Module):
     """One dynamic conv stage over the FPN pyramid: deformable convs, the
     attention fusion and DyReLU, each optional (the configs' USE_DFCONV,
@@ -161,7 +154,7 @@ class DyConv(nn.Module):
             if level < len(feats) - 1:
                 up = self.conv_up(feats[level + 1], *offsets[level + 1])
                 _, H, W, _ = temp[0].shape
-                temp.append(_resize_bilinear(up, H, W))
+                temp.append(resize_bilinear(up, H, W))
             stacked = torch.stack(temp)  # [k, B, H, W, C]
             if self.attn is not None:
                 attn = torch.stack([h_sigmoid(self.attn(t.mean(dim=(1, 2), keepdim=True)))

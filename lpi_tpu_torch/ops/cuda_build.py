@@ -20,7 +20,8 @@ from typing import Dict, Iterable, Optional
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "lpi_tpu_torch"
-SOURCES = {"deform_window": "deform_window.cu", "fused_deform": "fused_deform.cu"}
+SOURCES = {"deform_window": "deform_window.cu", "fused_deform": "fused_deform.cu",
+           "resize_bilinear": "resize_bilinear.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

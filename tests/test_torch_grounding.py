@@ -21,8 +21,9 @@ from lpi_tpu_torch.bridge import keys_from_jax, params_from_jax
 from lpi_tpu_torch.data.bert_tokenizer import BertTokenizer
 from lpi_tpu_torch.models.glip.fpn import FPN
 from lpi_tpu_torch.models.glip.grounding import GroundedVLModel, init_parameters
-from lpi_tpu_torch.models.glip.vldyhead import VLDyHead, _resize_bilinear
+from lpi_tpu_torch.models.glip.vldyhead import VLDyHead
 from lpi_tpu_torch.ops import deform_window_kernel as tdk
+from lpi_tpu_torch.ops import resize_bilinear as trb
 from lpi_tpu_torch.serve.predictor import GroundingPredictor
 from tests.test_composed_parity import _assert_close
 
@@ -59,13 +60,48 @@ def _load(module, flax_params, prefix):
     return module.eval()
 
 
-@pytest.mark.parametrize("src,dst", [((4, 4), (7, 7)), ((7, 7), (14, 14)),
-                                     ((2, 2), (4, 4)), ((1, 1), (1, 1)), ((3, 5), (6, 9))])
+RESIZE_CASES = [((4, 4), (7, 7)), ((7, 7), (14, 14)), ((2, 2), (4, 4)), ((1, 1), (1, 1)),
+                ((3, 5), (6, 9)), ((28, 28), (56, 56))]
+
+
+@pytest.mark.parametrize("src,dst", RESIZE_CASES)
 def test_bilinear_resize_matches_jax(rng, src, dst):
     x = rng.randn(1, *src, 3).astype(np.float32)
     want = jax.image.resize(jnp.asarray(x), (1, *dst, 3), method="bilinear")
-    got = _resize_bilinear(torch.from_numpy(x), *dst).numpy()
+    got = trb.resize_bilinear(torch.from_numpy(x), *dst).numpy()
     np.testing.assert_allclose(got, np.asarray(want), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("src,dst", RESIZE_CASES)
+def test_bilinear_resize_vjp_matches_jax(rng, src, dst):
+    x = rng.randn(2, *src, 3).astype(np.float32)
+    ct = rng.randn(2, *dst, 3).astype(np.float32)
+    _, vjp = jax.vjp(lambda a: jax.image.resize(a, (2, *dst, 3), method="bilinear"),
+                     jnp.asarray(x))
+    (want,) = vjp(jnp.asarray(ct))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    (got,) = torch.autograd.grad(trb.resize_bilinear(xt, *dst), xt, torch.from_numpy(ct))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("src,dst", RESIZE_CASES + [((23, 40), (45, 80)), ((5, 5), (17, 13)),
+                                                    ((2, 3), (2, 7))])
+def test_resize_backward_reference_matches_autograd(rng, src, dst):
+    """The gather form (each input pixel's contiguous ranges of outputs, in
+    order) against autograd through `F.interpolate`, both in fp64."""
+    x = torch.from_numpy(rng.randn(2, *src, 5)).requires_grad_(True)
+    ct = torch.from_numpy(rng.randn(2, *dst, 5))
+    (want,) = torch.autograd.grad(trb.resize_bilinear(x, *dst), x, ct)
+    got = trb.resize_bilinear_backward_reference(ct, *src)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-12, rtol=1e-12)
+
+
+@pytest.mark.parametrize("src,dst", [((4, 4), (3, 4)), ((4, 4), (4, 3)), ((7, 7), (4, 4))])
+def test_bilinear_resize_refuses_a_downsample(src, dst):
+    """jax.image.resize antialiases a downsample and F.interpolate does not."""
+    with pytest.raises(ValueError, match="upsamples only"):
+        trb.resize_bilinear(torch.zeros(1, *src, 2), *dst)
 
 
 def test_fpn(rng):

@@ -1,5 +1,5 @@
-"""The CUDA deform window kernels and the fused deform kernels, forward and
-backward, against their plain PyTorch versions.
+"""The CUDA deform window kernels, the fused deform kernels and the bilinear
+upsample, forward and backward, against their plain PyTorch versions.
 
 These need a CUDA card and `nvcc` (the kernels have no CPU form), so they
 skip elsewhere. The file imports neither JAX nor the JAX package, so that it
@@ -15,6 +15,7 @@ import torch
 from lpi_tpu_torch.ops import deform_conv as tdc
 from lpi_tpu_torch.ops import deform_window_kernel as tdk
 from lpi_tpu_torch.ops import fused_deform_kernel as tfk
+from lpi_tpu_torch.ops import resize_bilinear as trb
 
 pytestmark = pytest.mark.gpu
 
@@ -1193,3 +1194,160 @@ def test_profiling_tools_on_the_card(card, tmp_path):
     events = json.load(open(tmp_path / name))["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     assert kernels and any(e.get("name") == "aten::mm" for e in events)
+
+
+# ---- the bilinear upsample (`ops/resize_bilinear.py`) ------------------------
+RESIZE_CASES = [  # (B, h, w, H, W, C)
+    # the b16 train step's levels at 448 px
+    (16, 28, 28, 56, 56, 256), (16, 14, 14, 28, 28, 256), (16, 7, 7, 14, 14, 256),
+    (16, 4, 4, 7, 7, 256),
+    # a request's levels (640 x 360 and the like): odd sizes, ratios off 2
+    (1, 23, 40, 45, 80, 256), (1, 12, 20, 23, 40, 256), (1, 3, 5, 6, 10, 256),
+    (1, 2, 3, 3, 5, 256),
+    # C not a multiple of 8 (scalar loads) and the identity
+    (2, 5, 7, 9, 13, 12), (2, 4, 4, 7, 7, 20), (1, 1, 1, 1, 1, 3),
+]
+
+
+def _resize_inputs(B, h, w, H, W, C, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(B, h, w, C, generator=g), torch.randn(B, H, W, C, generator=g)
+
+
+def _resize_cpu_path(x, ct, H, W):
+    """Forward and backward of the CPU path (`F.interpolate`, autograd)."""
+    x = x.clone().requires_grad_(True)
+    y = trb.resize_bilinear(x, H, W)
+    (dx,) = torch.autograd.grad(y, x, ct)
+    return y.detach(), dx
+
+
+@pytest.mark.parametrize("B,h,w,H,W,C", RESIZE_CASES)
+def test_resize_kernels_match_the_cpu_path(card, B, h, w, H, W, C):
+    """fp32 forward and backward within 1e-5 of the CPU path in fp64,
+    beyond the CPU path's own fp32 distance from it: both take the taps
+    with scale = in / out in fp32, which alone moves a weight by about
+    |src| 2^-24 where the ratio is not a power of two."""
+    x, ct = _resize_inputs(B, h, w, H, W, C)
+    want = _resize_cpu_path(x.double(), ct.double(), H, W)
+    cpu = _resize_cpu_path(x, ct, H, W)
+    before = (trb.resize_bilinear_forward.launches, trb.resize_bilinear_backward.launches)
+    got = (trb.resize_bilinear_forward(x.cuda(), H, W),
+           trb.resize_bilinear_backward(ct.cuda(), h, w))
+    torch.cuda.synchronize()
+    assert (trb.resize_bilinear_forward.launches,
+            trb.resize_bilinear_backward.launches) == (before[0] + 1, before[1] + 1)
+    for g, c, w64 in zip(got, cpu, want):
+        assert g.dtype == torch.float32
+        err = (g.cpu().double() - w64).abs()
+        room = (c.double() - w64).abs() + 1e-5
+        assert (err <= room).all(), float((err - room).max())
+
+
+@pytest.mark.parametrize("B,h,w,H,W,C", RESIZE_CASES)
+def test_resize_backward_kernel_matches_the_gather_reference(card, B, h, w, H, W, C):
+    """The backward kernel against `resize_bilinear_backward_reference` on
+    the card, fp32: the same output ranges and weights per input pixel,
+    summed in another order."""
+    _, ct = (t.cuda() for t in _resize_inputs(B, h, w, H, W, C, seed=7))
+    got = trb.resize_bilinear_backward(ct, h, w)
+    want = trb.resize_bilinear_backward_reference(ct, h, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,h,w,H,W,C", RESIZE_CASES)
+def test_resize_bf16_kernels_round_the_fp32_kernels_once(card, B, h, w, H, W, C):
+    """bf16 maps: the fp32 sums rounded once, so within one bf16 rounding
+    (2^-8 relative) of the fp32 kernels on the same values."""
+    x, ct = (t.cuda().bfloat16() for t in _resize_inputs(B, h, w, H, W, C, seed=1))
+    pairs = ((trb.resize_bilinear_forward(x, H, W), trb.resize_bilinear_forward(x.float(), H, W)),
+             (trb.resize_bilinear_backward(ct, h, w),
+              trb.resize_bilinear_backward(ct.float(), h, w)))
+    torch.cuda.synchronize()
+    for got, fp32 in pairs:
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), fp32, rtol=2.0 ** -8, atol=0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resize_backward_repeats_bit_for_bit(card, dtype):
+    ct = torch.randn(16, 56, 56, 256, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(4)).to(dtype)
+    first = trb.resize_bilinear_backward(ct, 28, 28)
+    second = trb.resize_bilinear_backward(ct, 28, 28)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_resize_runs_under_deterministic_algorithms(card):
+    """No error with deterministic algorithms on and no warn-only: the
+    Function calls neither `F.interpolate` nor any op without a
+    deterministic form; its gradient is the backward kernel's."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    x, ct = (t.cuda().bfloat16() for t in _resize_inputs(2, 7, 9, 14, 17, 64, seed=2))
+    x.requires_grad_(True)
+    torch.use_deterministic_algorithms(True, warn_only=False)
+    try:
+        (dx,) = torch.autograd.grad(trb.resize_bilinear(x, 14, 17), x, ct)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+    assert torch.equal(dx, trb.resize_bilinear_backward(ct, 7, 9))
+
+
+def test_resize_strided_cotangent_goes_through_the_function(card):
+    x, ct = (t.cuda() for t in _resize_inputs(2, 5, 6, 10, 12, 8, seed=3))
+    x.requires_grad_(True)
+    y = trb.resize_bilinear(x, 10, 12)
+    (y.transpose(1, 2) * ct.transpose(1, 2)).sum().backward()
+    torch.cuda.synchronize()
+    assert torch.equal(x.grad, trb.resize_bilinear_backward(ct, 5, 6))
+
+
+def test_resize_captured_equals_eager(card):
+    """Forward and backward captured in a CUDA graph (no host sync inside)
+    give eager's bits."""
+    x, ct = (t.cuda().bfloat16() for t in _resize_inputs(4, 14, 14, 28, 28, 256, seed=5))
+
+    def step():
+        # a fresh leaf each call, so that its gradient node is made on the
+        # stream that runs (the capture's), not on the default stream
+        xr = x.detach().requires_grad_(True)
+        y = trb.resize_bilinear(xr, 28, 28)
+        (dx,) = torch.autograd.grad(y, xr, ct)
+        return y, dx
+
+    want = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = step()
+    graph.replay()
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_resize_launches_per_head_step(card):
+    """One forward and backward of a VLDyHead with 6 towers over 5 levels:
+    4 upsamples a tower, 24 launches each way."""
+    from lpi_tpu_torch import config as tc
+    from lpi_tpu_torch.models.glip.vldyhead import VLDyHead
+
+    head = VLDyHead(tc.DyHeadConfig(channels=32), lang_dim=16).cuda()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    feats = [torch.randn(2, s, s, 32, device="cuda", generator=g) for s in (16, 8, 4, 2, 1)]
+    emb = torch.randn(2, 6, 16, device="cuda", generator=g)
+    trb.reset_launch_counts()
+    out = head(feats, emb, torch.ones(2, 6, device="cuda"))
+    assert (trb.resize_bilinear_forward.launches, trb.resize_bilinear_backward.launches) == (24, 0)
+    sum(t.float().sum() for k in ("bbox_pred", "centerness", "dot_logits", "cls_logits")
+        for t in out[k]).backward()
+    torch.cuda.synchronize()
+    assert (trb.resize_bilinear_forward.launches, trb.resize_bilinear_backward.launches) == (24, 24)
